@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled by ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash covers the
 source and the flags, so an edited source rebuilds) and loaded with
 ``ctypes``. Nothing is compiled at import: the first CUDA call of a
-kernel builds it. The compiler's output (``-Xptxas -v``: registers,
+kernel builds it, and :func:`build_all` builds every source at once, one
+``nvcc`` process each. The compiler's output (``-Xptxas -v``: registers,
 spills) is kept beside the library as ``<name>-<hash>.log``.
 """
 from __future__ import annotations
@@ -15,11 +16,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import Dict, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-SOURCES = ("flash_relpos_fwd",)
+SOURCES = ("flash_relpos_fwd", "flash_relpos_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,22 +45,36 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Build every ``csrc/<name>.cu`` not yet built, all ``nvcc`` processes
+    started together; returns {name: library path}. Raises if any fails."""
+    targets = {name: _target(name) for name in names}
+    procs = {}
+    for name, target in targets.items():
+        if os.path.exists(target):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs[name] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", target + ".tmp",
+             os.path.join(CSRC, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    failed = []
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        with open(targets[name][:-3] + ".log", "w") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(targets[name] + ".tmp", targets[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return targets
+
+
 def build(name: str) -> str:
     """Build ``csrc/<name>.cu`` unless built; returns the library's path."""
-    target = _target(name)
-    if os.path.exists(target):
-        return target
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = target + ".tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    with open(target[:-3] + ".log", "w") as f:
-        f.write(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, target)
-    return target
+    return build_all((name,))[name]
 
 
 @functools.cache

@@ -352,7 +352,7 @@ int flash_relpos_fwd_f32(const void* q, const void* k, const void* v,
                        scale, stream);
 }
 
-const char* flash_relpos_error_string(int code) {
+const char* flash_relpos_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -20,18 +20,27 @@ and softmax in fp32, tanh GELU in bf16, NHWC token grids):
 The modules carry the reference ``.pth`` names (``patch_embed.proj``,
 ``blocks.{i}.attn.qkv``, ``decoder_pred.0`` ...), so released checkpoints
 load with ``load_state_dict``; the forward is written as plain functions
-over them. Eval mode only: there is no drop-path.
+over them.
+
+Training (``forward(..., train=True)``) adds per-sample stochastic depth
+(timm DropPath, rate ``linspace(0, drop_path_rate, depth)``) with masks
+drawn from an explicit ``torch.Generator`` outside each block, and
+per-block activation checkpointing (:data:`REMAT_POLICIES`).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from painter_tpu_torch.configs import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 from painter_tpu_torch.device import resolve_device
+from painter_tpu_torch.kernels.flash_relpos import KernelOutputCache
 from painter_tpu_torch.ops.attention import attention
 from painter_tpu_torch.ops.norm import layer_norm
 from painter_tpu_torch.ops.patches import patchify
@@ -253,11 +262,26 @@ def residual_bottleneck_apply(res: ResBottleneck, x: torch.Tensor,
     return x + out
 
 
+def _drop_path(x: torch.Tensor, keep_mask: Optional[torch.Tensor],
+               rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth (timm DropPath): ``keep_mask`` (B,)
+    of 0/1, the kept samples scaled by 1 / (1 - rate)."""
+    if keep_mask is None:
+        return x
+    m = keep_mask.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+    return x * m / (1.0 - rate)
+
+
 def block_apply(blk: Block, x: torch.Tensor, cfg: ModelConfig, *,
                 window_size: int = 0, ensemble_groups: int = 0,
                 ensemble_weights: Optional[torch.Tensor] = None,
-                attn_impl: str = "kernel") -> torch.Tensor:
-    """One transformer block over an (B, H, W, C) grid."""
+                attn_impl: str = "kernel", dpr: float = 0.0,
+                drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One transformer block over an (B, H, W, C) grid.
+
+    ``drop_mask`` (2, B) holds the keep masks of the attention and MLP
+    branches (stochastic depth at rate ``dpr``); None keeps every sample.
+    """
     b, h, w, _ = x.shape
     shortcut = x
     xn = layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
@@ -275,12 +299,49 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ModelConfig, *,
         att = window_unpartition(att, window_size, pad_hw, (h, w))
     if ensemble_groups:
         att = _feature_ensemble(att, ensemble_groups, ensemble_weights)
-    x = shortcut + att
+    keep_attn, keep_mlp = (None, None) if drop_mask is None else drop_mask
+    x = shortcut + _drop_path(att, keep_attn, dpr)
     m = blk.mlp
     xm = linear(layer_norm(x, blk.norm2.weight, blk.norm2.bias, cfg.ln_eps),
                 m.fc1.weight, m.fc1.bias)
     xm = linear(_gelu(xm, cfg.gelu_approximate), m.fc2.weight, m.fc2.bias)
-    return x + xm
+    return x + _drop_path(xm, keep_mlp, dpr)
+
+
+# Per-block activation checkpointing (the JAX ``remat_policy``): "full"
+# recomputes the whole block in the backward; "save_kernel" keeps the
+# attention kernel's outputs (out, lse), so the recompute re-runs LN, the
+# gemms and the MLP but never the attention forward
+REMAT_POLICIES = ("full", "save_kernel")
+
+
+def _checkpointed(fn, policy: str):
+    """``fn(x, drop_mask=...)`` checkpointed under ``policy``. The block
+    draws no random numbers (its drop-path masks come in), so the RNG
+    state is not saved for the recompute."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} is not ported; the port "
+                         f"has {REMAT_POLICIES}")
+
+    def run(x, drop_mask, cache):
+        if cache is None:
+            return fn(x, drop_mask=drop_mask)
+        with cache.active():
+            return fn(x, drop_mask=drop_mask)
+
+    def apply(x, drop_mask):
+        cache = KernelOutputCache() if policy == "save_kernel" else None
+        return checkpoint(run, x, drop_mask, cache, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return apply
+
+
+def _drop_masks(n: int, rate: float, generator: torch.Generator,
+                device) -> torch.Tensor:
+    """(2, n) keep masks, Bernoulli(1 - rate), drawn from ``generator``."""
+    u = torch.rand((2, n), generator=generator, device=generator.device)
+    return (u >= rate).float().to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -320,8 +381,16 @@ def forward_encoder(model: InContextViT, imgs: torch.Tensor,
                     seg_type: Optional[torch.Tensor] = None,
                     merge_between_batch: int = -1,
                     ensemble_weights: Optional[torch.Tensor] = None,
-                    attn_impl: str = "kernel") -> List[torch.Tensor]:
-    """imgs/tgts (B, H, W, 3) NHWC -> tapped features (B, Hp, Wp, C)."""
+                    attn_impl: str = "kernel", train: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    remat: bool = False,
+                    remat_policy: str = "save_kernel") -> List[torch.Tensor]:
+    """imgs/tgts (B, H, W, 3) NHWC -> tapped features (B, Hp, Wp, C).
+
+    With ``train`` and a ``generator``, each block draws its drop-path
+    masks before it runs, so a checkpointed block's recompute reuses
+    them; ``remat`` checkpoints every block under ``remat_policy``.
+    """
     cfg = model.cfg
     dtype = cfg.compute_dtype
     x = _patch_embed(model, imgs)
@@ -351,12 +420,22 @@ def forward_encoder(model: InContextViT, imgs: torch.Tensor,
     if any(t < cfg.merge_idx for t in cfg.out_indices):
         raise ValueError("taps before the stream merge would mix batch "
                          "sizes")
+    checkpointed = remat and train
+    dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
     taps: List[torch.Tensor] = []
     for i, ((ws, groups), blk) in enumerate(
             zip(_block_plan(cfg, merge_between_batch), model.blocks)):
-        x = block_apply(blk, x, cfg, window_size=ws, ensemble_groups=groups,
-                        ensemble_weights=ensemble_weights,
-                        attn_impl=attn_impl)
+        rate = float(dpr[i]) if train and generator is not None else 0.0
+        mask = (_drop_masks(x.shape[0], rate, generator, x.device)
+                if rate > 0 else None)
+        fn = functools.partial(block_apply, blk, cfg=cfg, window_size=ws,
+                               ensemble_groups=groups,
+                               ensemble_weights=ensemble_weights,
+                               attn_impl=attn_impl, dpr=rate)
+        if checkpointed:
+            x = _checkpointed(fn, remat_policy)(x, mask)
+        else:
+            x = fn(x, drop_mask=mask)
         if i in cfg.residual_block_indexes:
             x = residual_bottleneck_apply(blk.residual, x)
         if i == cfg.merge_idx:
@@ -439,9 +518,12 @@ def forward(model: InContextViT, imgs: torch.Tensor, tgts: torch.Tensor,
             bool_masked_pos: Optional[torch.Tensor] = None,
             valid: Optional[torch.Tensor] = None,
             seg_type: Optional[torch.Tensor] = None,
-            merge_between_batch: int = -1, attn_impl: str = "kernel"):
+            merge_between_batch: int = -1, attn_impl: str = "kernel",
+            train: bool = False, generator: Optional[torch.Generator] = None,
+            remat: bool = False, remat_policy: str = "save_kernel"):
     """Full forward -> (loss, patchified pred, bool_masked_pos), as
-    ``models_painter.py:464-472`` (NHWC in and out), in eval mode."""
+    ``models_painter.py:464-472`` (NHWC in and out); ``train`` and the
+    rest as :func:`forward_encoder`."""
     cfg = model.cfg
     b = imgs.shape[0]
     num_patches = (imgs.shape[1] // cfg.patch_size) * \
@@ -455,7 +537,9 @@ def forward(model: InContextViT, imgs: torch.Tensor, tgts: torch.Tensor,
     feats = forward_encoder(model, imgs, tgts, bool_masked_pos,
                             seg_type=seg_type,
                             merge_between_batch=merge_between_batch,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, train=train,
+                            generator=generator, remat=remat,
+                            remat_policy=remat_policy)
     pred = forward_decoder(model, feats)
     loss = forward_loss(cfg, pred, tgts, bool_masked_pos, valid)
     return loss, patchify(pred.float(), cfg.patch_size), bool_masked_pos

@@ -4,11 +4,14 @@ Behavioral contract from ``Painter/models_painter.py:33-89`` and
 ``vitdet_utils.py:96-125`` (MViTv2-style decomposed rel-pos):
 ``attn[b,n,(qh,qw),(kh,kw)] = q.k*scale + rel_h[qh,qw,kh] + rel_w[qh,qw,kw]``.
 
-The attention itself always goes through
-:func:`painter_tpu_torch.kernels.flash_relpos.flash_attention_relpos`
-(the CUDA kernel on the card, its plain version on the CPU).
-``attn_impl="plain"`` asks for the plain version on any device; it exists
-so a comparison can run both on the same inputs.
+The attention itself goes through
+:func:`painter_tpu_torch.kernels.flash_relpos.flash_attention_relpos_fn`,
+the autograd Function around K1 (forward) and K2 (backward): the CUDA
+kernels on the card, their plain versions on the CPU. The rel-term einsum
+(:func:`rel_pos_bias`) stays plain autograd and carries the rel-bias
+gradients on to the tables and into dq. ``attn_impl="plain"`` asks for the
+plain forward, differentiated by autograd, on any device; it exists so a
+comparison can run both on the same inputs.
 """
 from __future__ import annotations
 
@@ -17,11 +20,11 @@ from typing import Optional, Tuple
 import torch
 
 from painter_tpu_torch.kernels.flash_relpos import (
-    flash_attention_relpos, flash_attention_relpos_reference)
+    flash_attention_relpos_fn, flash_attention_relpos_reference)
 from painter_tpu_torch.ops.pos_embed import get_rel_pos
 from painter_tpu_torch.ops.quant import linear
 
-_IMPLS = {"kernel": flash_attention_relpos,
+_IMPLS = {"kernel": flash_attention_relpos_fn,
           "plain": flash_attention_relpos_reference}
 
 
