@@ -3,18 +3,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``painter_tpu_torch/kernels/csrc``,
-holds each kernel (K1 attention forward, K2 its backward) against its
-plain PyTorch version on the card, then drives both main paths at full
+holds each kernel (K1 attention forward, K2 its backward, K3 / K4 the
+fused decoder tail forward / backward, K5 the fused w8a8 MLP) against its
+plain PyTorch version on the card, then drives the main paths at full
 width and depth with random weights from a seed: serving SegGPT ViT-L
-896x448 (bf16) through ``InContextModel``, and training Painter ViT-L
-896x448 (bf16 compute, fp32 params) through
-``painter_tpu_torch.train.train.main`` on a synthetic dataset, after a
-full-model gradient check of K1/K2 against plain attention. Checks that
-each path went through the kernels. Prints its findings, then a
-``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the exit code is not 0 and the last line is not printed. Needs
-a CUDA device; it imports nothing of JAX.
+896x448 (bf16) through ``InContextModel``, in bf16 and quantized (int8,
+and int8 with the fused MLP kernel); and training Painter ViT-L 896x448
+(bf16 compute, fp32 params) with the fused decoder tail through
+``painter_tpu_torch.train.train.main`` on a synthetic dataset, after
+full-model gradient checks of K1/K2 against plain attention and of K3/K4
+against the stock tail. Checks that each path went through its kernels.
+Prints its findings, then a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
+code is not 0 and the last line is not printed. Needs a CUDA device; it
+imports nothing of JAX.
 """
 import json
 import statistics
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak, same sheet
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (scalar FMA)
 H100_BYTES_PER_S = 3.35e12
 
@@ -258,6 +261,222 @@ def phase_k2(label):
     return rows
 
 
+# K3 / K4 at the trainer's b2 (2, 896, 448) in bf16 and fp32, a ragged
+# shape (neither side a multiple of the 16 / 14-pixel tiles) and the
+# one-token-row grid (16 pixel rows), both GELU flavours where cheap
+TAIL_SHAPES = (((2, 896, 448), FP32, (True,)),
+               ((2, 37, 29), FP32, (True, False)),
+               ((2, 16, 448), BF16, (True, False)))
+TAIL_MAIN_SHAPE = (2, 896, 448)
+# kernel vs plain, max abs error over max |plain| of each output. bf16:
+# both round at the same points (weights, GELU output, du, the outputs),
+# so they differ only where an fp32 sum in another order crosses a bf16
+# rounding boundary (one step, 2^-8 relative; du's flips summed over a
+# 3x3 window and 64 channels in dpix and dW1); fp32: summation order only,
+# but K4's dW1 and LN sums add ~8e5 pixels' terms (per-tile partials, then
+# a sum of 1024 partials against cuDNN's order: 9.1e-5 measured on an H100)
+K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+K4_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
+TAIL_GRADS = ("dpix", "dW1", "db1", "dln_scale", "dln_bias", "dW2", "db2")
+
+
+def _stock_tail(pix, w1, b1, lns, lnb, w2, b2, approx):
+    """The library yardstick: cuDNN conv3x3 + F.layer_norm + F.gelu +
+    conv1x1 in the input type (channels-last), as the xla decoder tail."""
+    dt = pix.dtype
+    x = torch.nn.functional.conv2d(pix.permute(0, 3, 1, 2), w1.to(dt),
+                                   b1.to(dt), padding=1)
+    x = torch.nn.functional.layer_norm(
+        x.permute(0, 2, 3, 1).float(), (x.shape[1],), lns, lnb,
+        eps=1e-6).to(dt)
+    x = torch.nn.functional.gelu(x, approximate="tanh" if approx else "none")
+    return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w2.to(dt),
+                                      b2.to(dt)).permute(0, 2, 3, 1)
+
+
+def tail_case(shape, dtype, approx, seed, iters):
+    """K3 and K4 against their plain versions on one input; the rows of
+    numbers of both."""
+    from painter_tpu_torch.kernels import decoder_head as dh
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w = shape
+    c = 64
+
+    def rnd(*sh, scale=1.0, shift=0.0):
+        return torch.randn(*sh, generator=g, device="cuda") * scale + shift
+
+    pix = rnd(b, h, w, c).to(dtype)
+    params = (rnd(c, c, 3, 3, scale=(9 * c) ** -0.5), rnd(c, scale=0.1),
+              rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
+              rnd(3, c, 1, 1, scale=c ** -0.5), rnd(3, scale=0.1))
+    go = rnd(b, h, w, 3).to(dtype)
+    out = dh.fused_decoder_tail(pix, *params, approx)
+    ref = dh.fused_decoder_tail_reference(pix, *params, approx)
+    got_g = dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx)
+    ref_g = dh.fused_decoder_tail_bwd_reference(pix, *params[:5], go, approx)
+    torch.cuda.synchronize()
+
+    def rel(a, r):
+        return ((a.float() - r.float()).abs().max()
+                / r.float().abs().max().clamp_min(1e-30)).item()
+
+    check(torch.isfinite(out).all().item(), f"K3 non-finite at {shape}")
+    k3_err = rel(out, ref)
+    k4_errs = {n: rel(a, r) for n, a, r in zip(TAIL_GRADS, got_g, ref_g)}
+    for a, n in zip(got_g, TAIL_GRADS):
+        check(torch.isfinite(a).all().item(), f"K4 {n} non-finite at {shape}")
+    check(k3_err <= K3_TOL[dtype], f"K3 {dtype} {shape} approx={approx}: "
+          f"err / max|plain| {k3_err} (tol {K3_TOL[dtype]})")
+    check(max(k4_errs.values()) <= K4_TOL[dtype],
+          f"K4 {dtype} {shape} approx={approx}: err / max|plain| "
+          f"{k4_errs} (tol {K4_TOL[dtype]})")
+    k3_abs = (out.float() - ref.float()).abs().max().item()
+    k4_abs = max((a.float() - r.float()).abs().max().item()
+                 for a, r in zip(got_g, ref_g))
+    del got_g, ref_g
+    n_pix = b * h * w
+    es = pix.element_size()
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    rows = {}
+    for name, flops, nbytes, fn, plain, lib in (
+            ("K3", 2 * n_pix * c * (9 * c + 3), n_pix * (c + 3) * es,
+             lambda: dh.fused_decoder_tail(pix, *params, approx),
+             lambda: dh.fused_decoder_tail_reference(pix, *params, approx),
+             lambda: _stock_tail(pix, *params, approx)),
+            ("K4", 2 * n_pix * c * (27 * c + 6), n_pix * (2 * c + 3) * es,
+             lambda: dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx),
+             lambda: dh.fused_decoder_tail_bwd_reference(pix, *params[:5],
+                                                         go, approx),
+             None)):
+        if lib is None:
+            # the library's backward: autograd of the stock tail, its
+            # forward run once outside the timing
+            leaves = [pix.detach().clone().requires_grad_()] + [
+                p.detach().clone().requires_grad_() for p in params]
+            y = _stock_tail(*leaves, approx)
+
+            def lib(y=y, leaves=leaves):
+                return torch.autograd.grad(y, leaves, go, retain_graph=True)
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        rows[name] = {
+            "shape": list(shape), "dtype": str(dtype), "approx": approx,
+            "max_abs_err": k3_abs if name == "K3" else k4_abs,
+            "rel_err": k3_err if name == "K3" else max(k4_errs.values()),
+            "ms": cuda_ms(fn, iters), "plain_ms": cuda_ms(plain,
+                                                          max(1, iters // 2)),
+            "library_ms": cuda_ms(lib, iters), "flop": flops,
+            "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if name == "K4":
+            del y, leaves
+    rows["K4"]["rel_errs"] = k4_errs
+    rows["K4"]["library_fwd_bwd_ms"] = rows["K3"]["library_ms"] + \
+        rows["K4"]["library_ms"]
+    return rows
+
+
+def phase_tail(label):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for i, (shape, dtypes, approxes) in enumerate(TAIL_SHAPES):
+        for dtype in dtypes:
+            for approx in approxes:
+                big = shape == TAIL_MAIN_SHAPE
+                iters = (10 if dtype == torch.bfloat16 else 3) if big else 5
+                r = tail_case(shape, dtype, approx, seed=200 + i,
+                              iters=iters)
+                rows.append(r)
+                k4e = " ".join(f"{n} {e:.1e}"
+                               for n, e in r["K4"]["rel_errs"].items())
+                for name in ("K3", "K4"):
+                    x = r[name]
+                    print(f"# {name} {x['dtype']} {shape} "
+                          f"{'tanh' if approx else 'erf'}: err/max|plain| "
+                          f"{x['rel_err']:.2e}"
+                          + (f" ({k4e})" if name == "K4" else "")
+                          + f" kernel_ms {x['ms']:.4f} plain_ms "
+                          f"{x['plain_ms']:.4f} library_ms(stock tail "
+                          f"{'fwd' if name == 'K3' else 'bwd'}) "
+                          f"{x['library_ms']:.4f}"
+                          + (f" (fwd+bwd {x['library_fwd_bwd_ms']:.4f})"
+                             if name == "K4" else "")
+                          + f" bound_ms {x['bound_ms']:.4f} "
+                          f"({x['flop']:.4e} FLOP, {x['bound_by']}) "
+                          f"[{label}]")
+    return rows
+
+
+# K5 at the M (rows = batch x tokens) of the int8 serving paths: 12544 =
+# b8 trunk, 25088 = b8 prefix (two streams), 1568 = b1 trunk, 3136 = b1
+# prefix (image and target streams side by side), and a ragged 1000;
+# ViT-L widths (1024 -> 4096 -> 1024)
+K5_SHAPES = (12544, 25088, 1568, 3136, 1000)
+K5_MAIN_M = 12544
+# kernel vs plain, max abs error over max |plain|: the int32 sums are
+# exact and the kernel rounds every fp32 step where the plain version
+# does, so they agree to the bit where their tanh does; a tanh an ulp
+# apart can move a hidden value across a requantization boundary (one
+# int8 step of one hidden element, ~1/127 of its row's range, times one
+# fc2 weight: up to ~1e-2 of the output's range)
+K5_TOL = 2e-2
+
+
+def k5_case(m, seed, iters):
+    from painter_tpu_torch.kernels import int8_mlp as k5
+    from painter_tpu_torch.ops import quant
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, n = 1024, 4096
+    lins = []
+    for k_in, k_out in ((d, n), (n, d)):
+        lin = torch.nn.Linear(k_in, k_out, device="cuda")
+        with torch.no_grad():
+            lin.weight.normal_(0.0, 0.02, generator=g)
+            lin.bias.normal_(0.0, 0.02, generator=g)
+        lins.append(quant.QuantizedLinear.from_linear(lin))
+    fc1, fc2 = lins
+    x = torch.randn(m, d, generator=g, device="cuda").to(torch.bfloat16)
+    x[1] = 0  # a zero row
+    args = (x, fc1.weight.q, fc1.weight.scale, fc1.bias, fc2.weight.q,
+            fc2.weight.scale, fc2.bias)
+    out = k5.int8_mlp(*args)
+    ref = k5.int8_mlp_reference(*args)
+    torch.cuda.synchronize()
+    check(torch.isfinite(out).all().item(), f"K5 non-finite at M={m}")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    rel = err / ref.float().abs().max().item()
+    check(rel <= K5_TOL, f"K5 M={m}: err / max|plain| {rel} (tol {K5_TOL})")
+    ops = 4 * m * d * n
+    nbytes = 2 * m * d * x.element_size() + 2 * d * n + 4 * 2 * (d + n)
+    t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"m": m, "max_abs_err": err, "rel_err": rel,
+            "frac_differ": (diff > 0).float().mean().item(),
+            "ms": cuda_ms(lambda: k5.int8_mlp(*args), iters),
+            "plain_ms": cuda_ms(lambda: k5.int8_mlp_reference(*args),
+                                max(1, iters // 2)),
+            # the unfused w8a8 MLP, two torch._int_mm products
+            "library_ms": cuda_ms(lambda: quant.mlp(x, fc1, fc2, True, "xla"),
+                                  iters),
+            "flop": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_k5(label):
+    rows = []
+    for i, m in enumerate(K5_SHAPES):
+        r = k5_case(m, seed=300 + i, iters=10)
+        rows.append(r)
+        print(f"# K5 bf16 M={m} (1024->4096->1024): err/max|plain| "
+              f"{r['rel_err']:.2e} (values that differ "
+              f"{r['frac_differ']:.2e}) kernel_ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms(unfused int8 MLP, "
+              f"torch._int_mm) {r['library_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['flop']:.4e} int8 ops at 1979 "
+              f"TOP/s, {r['bound_by']}) [{label}]")
+    return rows
+
+
 def _seeded_model(cfg, seed):
     from painter_tpu_torch.models import incontext_vit as tm
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -357,8 +576,9 @@ def phase_model(label):
     return model, launches
 
 
-def phase_times(model, label):
-    """b8 ensemble pairs/s (bench.py:120-147 semantics) and b1 p50."""
+def phase_times(model, label, what="bf16", profile=True):
+    """b8 ensemble pairs/s (bench.py:120-147 semantics) and b1 p50 of
+    ``model`` (``what`` names it); returns (pairs/s, b1 p50 ms)."""
     from painter_tpu_torch.kernels import flash_relpos as fr
     from painter_tpu_torch.models import incontext_vit as tm
     from painter_tpu_torch.ops import image as image_ops
@@ -397,7 +617,8 @@ def phase_times(model, label):
               f"{fr.flash_attention_relpos.launches} times, expected "
               f"{cfg.depth * (1 + iters)}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        busy = profile_device(b8, "one b8 forward", label)
+        busy = (profile_device(b8, f"one b8 forward ({what})", label)
+                if profile else "not measured")
 
         i1, t1, m1, s1 = inputs(1)
         lat = []
@@ -407,10 +628,69 @@ def phase_times(model, label):
                 model, i1, t1, m1, seg_type=s1)).cpu().numpy()
             lat.append(time.perf_counter() - t0)
     p50 = statistics.median(lat[1:])
-    print(f"# b8 ensemble: {8 / b8_s:.3f} pairs/s ({b8_s * 1e3:.2f} ms per "
-          f"batch, peak memory {peak_gb:.2f} GB, device busy share "
+    print(f"# b8 ensemble ({what}): {8 / b8_s:.3f} pairs/s ({b8_s * 1e3:.2f} "
+          f"ms per batch, peak memory {peak_gb:.2f} GB, device busy share "
           f"{busy}); b1 p50 latency incl. host fetch {p50 * 1e3:.2f} ms "
           f"[{label}]")
+    return 8 / b8_s, p50 * 1e3
+
+
+# int8 serving output against the bf16 output, relative Frobenius: the
+# JAX package's own bound for its tiny int8 model (tests/test_quant.py)
+INT8_REL_FRO = 5e-2
+
+
+def phase_int8_serving(model, label):
+    """SegGPT ViT-L bf16 served quantized through ``InContextModel``:
+    quant "int8" (unfused w8a8 MLPs, K5 never launched) and "int8-fused"
+    (K5 once per block per forward), each through run_queries_shared at
+    b8 and run_one_image at b1, held against the bf16 output; then the
+    timings of both beside bf16's. Returns K5's launches on the path."""
+    from painter_tpu_torch.infer import engine
+    from painter_tpu_torch.kernels import int8_mlp as k5
+    cfg = model.cfg
+    res = cfg.img_size[1]
+    rng = np.random.RandomState(1)
+    img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+    queries = (rng.rand(8, res, res, 3) * 255).astype(np.uint8)
+    img1, tgt1 = engine.build_prompt_batch(rng.rand(res, res, 3),
+                                           [(img2, tgt2)])
+
+    def serve(eng):
+        return (eng.run_queries_shared(queries, img2, tgt2),
+                eng.run_one_image(img1, tgt1))
+
+    outs = {"bf16": serve(engine.InContextModel(cfg, model, device="cuda"))}
+    engines = {}
+    k5_launches = 0
+    for quant in ("int8", "int8-fused"):
+        engines[quant] = engine.InContextModel(cfg, model, device="cuda",
+                                               quant=quant)
+        k5.int8_mlp.launches = 0
+        outs[quant] = serve(engines[quant])
+        launches = k5.int8_mlp.launches
+        want = 0 if quant == "int8" else 2 * cfg.depth
+        print(f"# {quant} serving: K5 launches {launches} over a b8 "
+              f"run_queries_shared and a b1 run_one_image (expected {want})")
+        check(launches == want, f"{quant}: K5 launched {launches} times")
+        if quant == "int8-fused":
+            k5_launches = launches
+
+    def rel_fro(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    for a, b in (("int8", "bf16"), ("int8-fused", "bf16"),
+                 ("int8-fused", "int8")):
+        devs = [rel_fro(x, y) for x, y in zip(outs[a], outs[b])]
+        print(f"# {a} vs {b}: relative Frobenius deviation b8 "
+              f"{devs[0]:.4e}, b1 {devs[1]:.4e} (bound {INT8_REL_FRO}) "
+              f"[{label}]")
+        for o in outs[a]:
+            check(np.isfinite(o).all(), f"{a} painted non-finite values")
+        check(max(devs) <= INT8_REL_FRO, f"{a} deviates {devs} from {b}")
+    times = {name: phase_times(eng.model, label, what=name, profile=False)
+             for name, eng in engines.items()}
+    return k5_launches, times
 
 
 def profile_device(fn, what, label):
@@ -491,60 +771,77 @@ def _train_batch(cfg, batch, seed, accum=1):
                                 device="cuda")}
 
 
-def _loss_and_grads(model, batch, impl):
+def _loss_and_grads(model, batch, impl, decoder_impl="xla"):
     from painter_tpu_torch.models import incontext_vit as tm
     model.zero_grad(set_to_none=True)
     loss, _, _ = tm.forward(
         model, batch["imgs"], batch["tgts"], batch["mask"], batch["valid"],
         attn_impl=impl, train=True, remat=True, remat_policy="save_kernel",
-        generator=torch.Generator(device="cuda").manual_seed(7))
+        generator=torch.Generator(device="cuda").manual_seed(7),
+        decoder_impl=decoder_impl)
     loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return loss.item(), grads
 
 
+def _grad_pair(model, batch, what, label, fp32, kernel, other):
+    """Loss and gradients of ``kernel`` against ``other`` (each a
+    (attn_impl, decoder_impl) pair) on one micro-batch, held to the fp32
+    or bf16 limits."""
+    from painter_tpu_torch.kernels import decoder_head as dh
+    dh.fused_decoder_tail.launches = dh.fused_decoder_tail_bwd.launches = 0
+    loss_k, g_k = _loss_and_grads(model, batch, *kernel)
+    launches = (dh.fused_decoder_tail.launches,
+                dh.fused_decoder_tail_bwd.launches)
+    loss_p, g_p = _loss_and_grads(model, batch, *other)
+    check(launches == ((1, 1) if kernel[1] == "fused" else (0, 0)),
+          f"{what}: K3 / K4 launched {launches}")
+    check(all(torch.isfinite(g).all().item() for g in g_k.values()),
+          f"{what}: kernel gradients are not finite")
+    if fp32:
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        rel = {n: ((g_k[n] - g_p[n]).abs().max()
+                   / g_p[n].abs().max().clamp_min(1e-30)).item() for n in g_p}
+        worst = max(rel, key=rel.get)
+        print(f"# grad check {what} fp32 b1: loss {loss_k:.7f} vs "
+              f"{loss_p:.7f} (rel err {loss_err:.2e}, tol "
+              f"{GRAD_FP32_LOSS_RTOL}); worst gradient {worst} max abs err "
+              f"/ max abs {rel[worst]:.2e} (tol {GRAD_FP32_RTOL}) [{label}]")
+        check(loss_err <= GRAD_FP32_LOSS_RTOL,
+              f"{what} fp32 loss differs: {loss_err}")
+        check(rel[worst] <= GRAD_FP32_RTOL,
+              f"{what} fp32 gradient {worst} differs by {rel[worst]}")
+    else:
+        num = sum(((g_k[n] - g_p[n]).double() ** 2).sum() for n in g_p)
+        den = sum((g_p[n].double() ** 2).sum() for n in g_p)
+        rel_l2 = (num / den).sqrt().item()
+        print(f"# grad check {what} bf16 b2: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f}; concatenated gradient relative L2 "
+              f"{rel_l2:.3e} (tol {GRAD_BF16_REL_L2}) [{label}]")
+        check(rel_l2 <= GRAD_BF16_REL_L2,
+              f"{what} bf16 gradients differ: {rel_l2}")
+
+
 def phase_grad_check(label):
     """Painter ViT-L 896x448: one micro-batch's loss and every parameter's
-    gradient with K1/K2 against the same step with plain attention (same
-    weights, mask and drop-path generator seed); fp32 at batch 1, bf16 at
-    batch 2."""
+    gradient with K1/K2 against the same step with plain attention, and
+    with the fused tail (K3/K4) against the stock tail (same weights, mask
+    and drop-path generator seed); fp32 at batch 1, bf16 at batch 2."""
     from painter_tpu_torch import configs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = configs.get_config(PAINTER, dtype="float32")
     model = _seeded_model(cfg32, 1).train()
-    batch = _train_batch(cfg32, 1, seed=2)
-    loss_k, g_k = _loss_and_grads(model, batch, "kernel")
-    loss_p, g_p = _loss_and_grads(model, batch, "plain")
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    rel = {n: ((g_k[n] - g_p[n]).abs().max()
-               / g_p[n].abs().max().clamp_min(1e-30)).item() for n in g_p}
-    worst = max(rel, key=rel.get)
-    print(f"# grad check fp32 b1: loss kernel {loss_k:.7f} plain "
-          f"{loss_p:.7f} (rel err {loss_err:.2e}, tol "
-          f"{GRAD_FP32_LOSS_RTOL}); worst gradient {worst} max abs err / "
-          f"max abs {rel[worst]:.2e} (tol {GRAD_FP32_RTOL}) [{label}]")
-    check(loss_err <= GRAD_FP32_LOSS_RTOL, f"fp32 loss differs: {loss_err}")
-    check(rel[worst] <= GRAD_FP32_RTOL,
-          f"fp32 gradient {worst} differs by {rel[worst]}")
-    del g_k, g_p
-
     m16 = _same_weights(model, configs.get_config(PAINTER,
                                                   dtype="bfloat16")).train()
-    batch = _train_batch(cfg32, 2, seed=3)
-    loss_k, g_k = _loss_and_grads(m16, batch, "kernel")
-    loss_p, g_p = _loss_and_grads(m16, batch, "plain")
-    num = sum(((g_k[n] - g_p[n]).double() ** 2).sum() for n in g_p)
-    den = sum((g_p[n].double() ** 2).sum() for n in g_p)
-    rel_l2 = (num / den).sqrt().item()
-    print(f"# grad check bf16 b2: loss kernel {loss_k:.6f} plain "
-          f"{loss_p:.6f}; concatenated gradient relative L2 {rel_l2:.3e} "
-          f"(tol {GRAD_BF16_REL_L2}) [{label}]")
-    check(all(torch.isfinite(g).all().item() for g in g_k.values()),
-          "bf16 kernel gradients are not finite")
-    check(rel_l2 <= GRAD_BF16_REL_L2, f"bf16 gradients differ: {rel_l2}")
-    del model, m16, g_k, g_p
+    for m, fp32, batch in ((model, True, _train_batch(cfg32, 1, seed=2)),
+                           (m16, False, _train_batch(cfg32, 2, seed=3))):
+        _grad_pair(m, batch, "K1/K2 vs plain attention", label, fp32,
+                   ("kernel", "xla"), ("plain", "xla"))
+        _grad_pair(m, batch, "K3/K4 vs stock tail", label, fp32,
+                   ("kernel", "fused"), ("kernel", "xla"))
+    del model, m16
     torch.cuda.empty_cache()
 
 
@@ -573,10 +870,12 @@ def _write_dataset(root, n=12, seed=0):
 def phase_train_cli(label):
     """The training main path: ``painter_tpu_torch.train.train.main`` on
     the Painter preset in bf16 (batch 2, accum 2, 3 updates, save_kernel
-    remat, validation), K1/K2 counted around exactly this run."""
+    remat, the fused decoder tail, validation), K1-K4 counted around
+    exactly this run."""
     import os
     import tempfile
     from painter_tpu_torch import configs
+    from painter_tpu_torch.kernels import decoder_head as dh
     from painter_tpu_torch.kernels import flash_relpos as fr
     from painter_tpu_torch.train import train
     tmp = tempfile.TemporaryDirectory()
@@ -595,19 +894,27 @@ def phase_train_cli(label):
         "--max_mask_patches_per_block", str(cfg.num_patches // 4),
         "--batch_size", "2", "--accum_iter", str(accum), "--epochs", "1",
         "--max_steps_per_epoch", str(updates), "--remat_policy",
-        "save_kernel", "--print_freq", "1", "--watchdog_freq", "1"])
+        "save_kernel", "--decoder_impl", "fused", "--print_freq", "1",
+        "--watchdog_freq", "1"])
     fr.flash_attention_relpos.launches = 0
     fr.flash_attention_relpos_bwd.launches = 0
+    dh.fused_decoder_tail.launches = 0
+    dh.fused_decoder_tail_bwd.launches = 0
     result = train.main(args)
     k1 = fr.flash_attention_relpos.launches
     k2 = fr.flash_attention_relpos_bwd.launches
+    k3 = dh.fused_decoder_tail.launches
+    k4 = dh.fused_decoder_tail_bwd.launches
     micro = updates * accum
     depth = result["model"].cfg.depth
     print(f"# training main path: K1 launches {k1} ({micro} micro-batches "
           f"+ {val_batches} validation batches), K2 launches {k2}: per "
           f"micro-batch K1 {(k1 - depth * val_batches) / micro:g}, K2 "
-          f"{k2 / micro:g}")
+          f"{k2 / micro:g}; K3 launches {k3}, K4 launches {k4} (one each "
+          f"per micro-batch; validation keeps the stock tail)")
     check(result["step"] == updates, f"trained {result['step']} updates")
+    check(k3 == micro and k4 == micro,
+          f"K3 / K4 launched {k3} / {k4} times, expected {micro} each")
     check(k2 == depth * micro, f"K2 launched {k2} times, expected "
           f"{depth * micro}")
     check(k1 == depth * (micro + val_batches),
@@ -630,7 +937,7 @@ def phase_train_cli(label):
           f"{stats['val_loss']:.5f}, wrote log.txt, scalars.jsonl, "
           f"{ckpts[0]} [{label}]")
     tmp.cleanup()
-    return result, k1, k2
+    return result, k1, k2, k3, k4
 
 
 def phase_remat_full(result):
@@ -665,16 +972,18 @@ def _timed_updates(step, model, batch, gen, n):
 def phase_train_times(result, label):
     """ms per update at batch 2 x accum 2 (save_kernel remat) on a
     device-resident batch, updates 2..5, and a profile of one update; then
-    the remat choices in turns (save_kernel, full, none), 2 rounds of 2
-    updates each after one warm-up update."""
+    the remat choices and the fused decoder tail in turns (save_kernel,
+    full, none, fused = save_kernel with K3/K4), 2 rounds of 2 updates
+    each after one warm-up update."""
     from painter_tpu_torch.train import step as step_lib
     model, opt = result["model"], result["optimizer"]
     batch = _train_batch(model.cfg, 2, seed=6, accum=2)
     gen = torch.Generator(device="cuda").manual_seed(8)
     steps = {name: step_lib.make_train_step(
         model.cfg, opt, accum_iter=2, remat=name != "none",
-        remat_policy=name if name != "none" else "save_kernel")
-        for name in ("save_kernel", "full", "none")}
+        remat_policy=name if name in ("save_kernel", "full") else
+        "save_kernel", decoder_impl="fused" if name == "fused" else "auto")
+        for name in ("save_kernel", "full", "none", "fused")}
     step = steps["save_kernel"]
     step(model, batch, gen)
     torch.cuda.synchronize()
@@ -699,7 +1008,8 @@ def phase_train_times(result, label):
     for _ in range(2):
         for name, st in steps.items():
             by_name[name] += _timed_updates(st, model, batch, gen, 2)
-    print("# remat in turns, ms per update (mean of 4; peak GB): " + "; ".join(
+    print("# remat and decoder tail in turns, ms per update (mean of 4; "
+          "peak GB): " + "; ".join(
         f"{name} {statistics.mean(t) * 1e3:.2f} ({peaks[name]:.2f})"
         for name, t in by_name.items()) + f" [{label}]")
 
@@ -736,24 +1046,45 @@ def main():
     timed("build", phase_build)
     k1_rows = timed("K1 vs plain", phase_k1, label)
     k2_rows = timed("K2 vs plain", phase_k2, label)
+    tail_rows = timed("K3/K4 vs plain", phase_tail, label)
+    k5_rows = timed("K5 vs plain", phase_k5, label)
     model, serve_k1 = timed("serving drive", phase_model, label)
-    timed("serving times", phase_times, model, label)
+    bf16_times = timed("serving times", phase_times, model, label)
+    serve_k5, int8_times = timed("int8 serving drive", phase_int8_serving,
+                                 model, label)
+    all_times = (bf16_times, *int8_times.values())
+    print("# serving in bf16 / int8 / int8-fused: pairs/s (b8 ensemble) "
+          + " / ".join(f"{t[0]:.3f}" for t in all_times) + "; b1 p50 ms "
+          + " / ".join(f"{t[1]:.2f}" for t in all_times) + f" [{label}]")
     del model
     torch.cuda.empty_cache()
     timed("gradient check", phase_grad_check, label)
-    result, train_k1, train_k2 = timed("training drive", phase_train_cli,
-                                       label)
+    result, train_k1, train_k2, train_k3, train_k4 = timed(
+        "training drive", phase_train_cli, label)
     timed("remat full", phase_remat_full, result)
     timed("training times", phase_train_times, result, label)
     print(f"# K1 launches: serving main path {serve_k1}, training main path "
-          f"{train_k1}; K2 launches: training main path {train_k2}")
+          f"{train_k1}; K2 launches: training main path {train_k2}; K3 / K4 "
+          f"launches: training main path {train_k3} / {train_k4}; K5 "
+          f"launches: int8-fused serving path {serve_k5}")
+    tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
+                TAIL_MAIN_SHAPE and r["K3"]["dtype"] == str(torch.bfloat16))
+    k5_row = next(r for r in k5_rows if r["m"] == K5_MAIN_M)
     kernels = [
         _kernel_entry("flash_relpos_fwd",
                       "painter_tpu/kernels/flash_relpos.py:399",
                       serve_k1 + train_k1, _row(k1_rows, K1_MAIN_SHAPE)),
         _kernel_entry("flash_relpos_bwd",
                       "painter_tpu/kernels/flash_relpos.py:438",
-                      train_k2, _row(k2_rows, K2_MAIN_SHAPE))]
+                      train_k2, _row(k2_rows, K2_MAIN_SHAPE)),
+        _kernel_entry("decoder_tail_fwd",
+                      "painter_tpu/kernels/decoder_head.py:180", train_k3,
+                      tail["K3"]),
+        _kernel_entry("decoder_tail_bwd",
+                      "painter_tpu/kernels/decoder_head.py:304", train_k4,
+                      tail["K4"]),
+        _kernel_entry("int8_mlp", "painter_tpu/kernels/int8_mlp.py:87",
+                      serve_k5, k5_row)]
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from painter_tpu_torch.configs import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 from painter_tpu_torch.device import resolve_device
 from painter_tpu_torch.models import incontext_vit as model_lib
 from painter_tpu_torch.ops import image as image_ops
+from painter_tpu_torch.ops import quant as quant_lib
 from painter_tpu_torch.ops.resample import np_resize2d
 
 
@@ -84,19 +85,38 @@ def _np_normalize(x: np.ndarray) -> np.ndarray:
             / np.asarray(IMAGENET_STD, np.float32))
 
 
+#: serving precisions (``seggpt_cli --quant``): "int8" quantizes the MLP
+#: gemms (w8a8, ``ops.quant.quantize_model``), "int8-fused" also runs each
+#: MLP through the fused int8 kernel
+QUANT_MODES = ("none", "int8", "int8-fused")
+
+
+def prepare_model(model: model_lib.InContextViT,
+                  quant: str = "none") -> model_lib.InContextViT:
+    """``model`` for serving at ``quant`` (the branch of the JAX
+    ``seggpt_cli.prepare_model``); "none" returns it as it is."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
+    if quant == "none":
+        return model
+    return quant_lib.quantize_model(
+        model, mlp_impl="fused" if quant == "int8-fused" else "xla")
+
+
 class InContextModel:
     """A model on its device with the in-context predict paths.
 
     ``device`` defaults to ``cuda`` and raises when there is none; pass
-    ``device="cpu"`` to run on the host.
+    ``device="cpu"`` to run on the host. ``quant`` serves an int8 copy of
+    the model (:data:`QUANT_MODES`, :func:`prepare_model`).
     """
 
     def __init__(self, cfg: ModelConfig, model: model_lib.InContextViT,
                  seg_type: str = "semantic", pad_prompts: bool = True,
-                 device=None):
+                 device=None, quant: str = "none"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = prepare_model(model.to(self.device), quant).eval()
         self.seg_type = seg_type  # 'semantic' | 'instance' (SegGPT CLI)
         # prompt counts pad to powers of two with a weighted ensemble
         # (weight 0 on pads == the mean over the real prompts), so a

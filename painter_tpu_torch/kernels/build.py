@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled by ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source rebuilds) and loaded with
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source rebuilds) and loaded with
 ``ctypes``. Nothing is compiled at import: the first CUDA call of a
 kernel builds it, and :func:`build_all` builds every source at once, one
 ``nvcc`` process each. The compiler's output (``-Xptxas -v``: registers,
@@ -21,7 +22,8 @@ from typing import Dict, Sequence
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-SOURCES = ("flash_relpos_fwd", "flash_relpos_bwd")
+SOURCES = ("flash_relpos_fwd", "flash_relpos_bwd", "decoder_tail_fwd",
+           "decoder_tail_bwd", "int8_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +41,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

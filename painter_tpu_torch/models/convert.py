@@ -8,6 +8,13 @@ written again here so the port needs nothing of that package: a param
 tree of nested dicts of numpy arrays in, a reference-named state dict
 out. Released ``.pth`` checkpoints need no converter: they load with
 ``model.load_state_dict(sd, strict=False)``.
+
+A tree from the JAX package's ``quantize_params`` (int8 serving) carries
+``{kernel_q, scale, bias}`` leaves in place of ``{kernel, bias}``; those
+become ``<name>.weight.q`` (int8, transposed to (out, in)),
+``<name>.weight.scale`` and ``<name>.bias``, and :func:`load_jax_params`
+makes the matching modules
+:class:`~painter_tpu_torch.ops.quant.QuantizedLinear`.
 """
 from __future__ import annotations
 
@@ -17,11 +24,25 @@ import numpy as np
 import torch
 
 from painter_tpu_torch.configs import ModelConfig
+from painter_tpu_torch.ops.quant import QuantizedLinear
 
 
 def _conv(kernel: np.ndarray) -> np.ndarray:
     """HWIO -> (out, in, kh, kw)."""
     return kernel.transpose(3, 2, 0, 1)
+
+
+def _linear(sd: Dict[str, np.ndarray], name: str, lp: Mapping, i=None):
+    """One dense layer (layer ``i`` of a stacked leaf) under ``name``."""
+    def at(v):
+        return v if i is None else v[i]
+
+    if "kernel_q" in lp:
+        sd[name + ".weight.q"] = at(lp["kernel_q"]).T
+        sd[name + ".weight.scale"] = at(lp["scale"])
+    else:
+        sd[name + ".weight"] = at(lp["kernel"]).T
+    sd[name + ".bias"] = at(lp["bias"])
 
 
 def state_dict_from_jax_params(params_np: Mapping,
@@ -39,8 +60,7 @@ def state_dict_from_jax_params(params_np: Mapping,
         sd["pos_embed"] = p["pos_embed"][None]
     sd["norm.weight"] = p["norm"]["scale"]
     sd["norm.bias"] = p["norm"]["bias"]
-    sd["decoder_embed.weight"] = p["decoder_embed"]["kernel"].T
-    sd["decoder_embed.bias"] = p["decoder_embed"]["bias"]
+    _linear(sd, "decoder_embed", p["decoder_embed"])
     dp = p["decoder_pred"]
     sd["decoder_pred.0.weight"] = _conv(dp["conv1"]["kernel"])
     sd["decoder_pred.0.bias"] = dp["conv1"]["bias"]
@@ -58,8 +78,7 @@ def state_dict_from_jax_params(params_np: Mapping,
         for name, lp in (("attn.qkv", att["qkv"]), ("attn.proj", att["proj"]),
                          ("mlp.fc1", b["mlp"]["fc1"]),
                          ("mlp.fc2", b["mlp"]["fc2"])):
-            sd[pre + f"{name}.weight"] = lp["kernel"][i].T
-            sd[pre + f"{name}.bias"] = lp["bias"][i]
+            _linear(sd, pre + name, lp, i)
         if "rel_pos_h" in att:
             # a windowed block of a window-trained tree reads its
             # window-sized tables (models_painter.py:309)
@@ -74,13 +93,21 @@ def state_dict_from_jax_params(params_np: Mapping,
         for norm in ("norm1", "norm2", "norm3"):
             sd[pre + f"{norm}.weight"] = rp[norm]["scale"]
             sd[pre + f"{norm}.bias"] = rp[norm]["bias"]
-    return {k: torch.tensor(np.asarray(v), dtype=torch.float32)
-            for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(
+        v, np.int8 if k.endswith(".weight.q") else np.float32))
+        for k, v in sd.items()}
 
 
 def load_jax_params(model: torch.nn.Module,
                     params_np: Mapping) -> torch.nn.Module:
-    """Load a JAX param tree into ``model`` (all keys must match)."""
-    model.load_state_dict(state_dict_from_jax_params(params_np, model.cfg),
-                          strict=True)
+    """Load a JAX param tree into ``model`` (all keys must match); the
+    linears that the tree holds in int8 become quantized modules."""
+    sd = state_dict_from_jax_params(params_np, model.cfg)
+    dev = next(model.parameters()).device
+    for key in [k for k in sd if k.endswith(".weight.q")]:
+        name = key[:-len(".weight.q")]
+        model.set_submodule(name, QuantizedLinear(
+            sd[key].to(dev), sd[name + ".weight.scale"].to(dev),
+            sd[name + ".bias"].to(dev)))
+    model.load_state_dict(sd, strict=True)
     return model

@@ -40,12 +40,13 @@ from torch.utils.checkpoint import checkpoint
 
 from painter_tpu_torch.configs import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 from painter_tpu_torch.device import resolve_device
+from painter_tpu_torch.kernels.decoder_head import decoder_tail_fn
 from painter_tpu_torch.kernels.flash_relpos import KernelOutputCache
 from painter_tpu_torch.ops.attention import attention
 from painter_tpu_torch.ops.norm import layer_norm
 from painter_tpu_torch.ops.patches import patchify
 from painter_tpu_torch.ops.pos_embed import get_abs_pos
-from painter_tpu_torch.ops.quant import linear
+from painter_tpu_torch.ops.quant import linear, mlp
 from painter_tpu_torch.ops.windows import window_partition, window_unpartition
 
 
@@ -78,6 +79,9 @@ class Mlp(nn.Module):
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
         self.fc1 = nn.Linear(cfg.embed_dim, hidden)
         self.fc2 = nn.Linear(hidden, cfg.embed_dim)
+        # "fused" runs the int8 MLP kernel once quantize_model made fc1 and
+        # fc2 int8 (ops.quant.mlp)
+        self.mlp_impl = "xla"
 
 
 class ResBottleneck(nn.Module):
@@ -302,9 +306,8 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ModelConfig, *,
     keep_attn, keep_mlp = (None, None) if drop_mask is None else drop_mask
     x = shortcut + _drop_path(att, keep_attn, dpr)
     m = blk.mlp
-    xm = linear(layer_norm(x, blk.norm2.weight, blk.norm2.bias, cfg.ln_eps),
-                m.fc1.weight, m.fc1.bias)
-    xm = linear(_gelu(xm, cfg.gelu_approximate), m.fc2.weight, m.fc2.bias)
+    xm = mlp(layer_norm(x, blk.norm2.weight, blk.norm2.bias, cfg.ln_eps),
+             m.fc1, m.fc2, cfg.gelu_approximate, m.mlp_impl)
     return x + _drop_path(xm, keep_mlp, dpr)
 
 
@@ -451,23 +454,84 @@ def forward_encoder(model: InContextViT, imgs: torch.Tensor,
 # Decoder, loss, full forward
 # ---------------------------------------------------------------------------
 
-def forward_decoder(model: InContextViT,
-                    feats: Sequence[torch.Tensor]) -> torch.Tensor:
-    """4 tapped features -> painted prediction (B, H, W, 3)."""
+DECODER_IMPLS = ("xla", "fused", "packed")
+
+
+def forward_decoder(model: InContextViT, feats: Sequence[torch.Tensor],
+                    decoder_impl: str = "xla") -> torch.Tensor:
+    """4 tapped features -> painted prediction (B, H, W, 3).
+
+    ``decoder_impl`` "xla" runs the stock tail (conv3x3, LN, GELU,
+    conv1x1); "fused" runs it through :class:`FusedDecoderTail` (K3
+    forward, K4 backward on the card); "packed" runs it with W-pixel pairs
+    packed into the channel dim (:func:`_decoder_tail_packed`).
+    """
+    if decoder_impl not in DECODER_IMPLS:
+        raise ValueError(f"decoder_impl must be one of {DECODER_IMPLS}, got "
+                         f"{decoder_impl!r}")
     cfg = model.cfg
     x = torch.cat(list(feats), dim=-1)  # (B, Hp, Wp, 4C)
     x = linear(x, model.decoder_embed.weight, model.decoder_embed.bias)
     b, h, w, _ = x.shape
     p = cfg.patch_size
     dec = cfg.decoder_embed_dim
-    # pixel shuffle: (B, h, w, p*p*dec) -> (B, h*p, w*p, dec)
-    x = x.reshape(b, h, w, p, p, dec).permute(0, 1, 3, 2, 4, 5).reshape(
-        b, h * p, w * p, dec)
+    x = x.reshape(b, h, w, p, p, dec).permute(0, 1, 3, 2, 4, 5)
     conv1, ln, _, conv2 = model.decoder_pred
+    if decoder_impl == "packed":
+        if (w * p) % 2:
+            raise ValueError(
+                f"decoder_impl='packed' pairs adjacent W pixels and needs "
+                f"an even painted width; got w*p = {w}*{p} = {w * p} -- "
+                f"use decoder_impl='xla' for odd widths")
+        # the same shuffle, straight into the packed layout: the two
+        # pixels of each W-pair land in one 2*dec channel row
+        return _decoder_tail_packed(
+            model, x.reshape(b, h * p, (w * p) // 2, 2 * dec))
+    # pixel shuffle: (B, h, w, p*p*dec) -> (B, h*p, w*p, dec)
+    x = x.reshape(b, h * p, w * p, dec)
+    if decoder_impl == "fused":
+        return decoder_tail_fn(x, conv1.weight, conv1.bias, ln.weight,
+                               ln.bias, conv2.weight, conv2.bias,
+                               cfg.gelu_approximate)
     x = _conv_nhwc(x, conv1.weight, conv1.bias, 1)
     x = _gelu(layer_norm(x, ln.weight, ln.bias, eps=1e-6),
               cfg.gelu_approximate)
     return _conv_nhwc(x, conv2.weight, conv2.bias, 0)
+
+
+def _decoder_tail_packed(model: InContextViT,
+                         x: torch.Tensor) -> torch.Tensor:
+    """The decoder tail on W-pixel pairs packed into channels
+    (``incontext_vit._decoder_tail_packed``): x (B, H, W/2, 2*dec).
+
+    The 3x3 conv becomes a block-structured (2*dec, 2*dec, 3, 3) conv over
+    half the width; LN normalizes each pixel's own dec channels; the 1x1
+    conv is a block-diagonal (2*dec, 6) product. Same math as the stock
+    tail; gradients reach the canonical weights through the packing.
+    """
+    dtype = x.dtype
+    b, hh, wp2, cc = x.shape
+    dec = cc // 2
+    conv1, ln, _, conv2 = model.decoder_pred
+    w1 = conv1.weight.to(dtype)  # (dec_out, dec_in, 3, 3)
+    # output pixel t of a pair reads input pixel t + dw, which lives at
+    # packed column offset floor((t + dw) / 2), slot (t + dw) % 2
+    wp = w1.new_zeros((2 * dec, 2 * dec, 3, 3))
+    for t in (0, 1):
+        for dw in (-1, 0, 1):
+            kwp, u = (t + dw) // 2, (t + dw) % 2
+            wp[t * dec:(t + 1) * dec, u * dec:(u + 1) * dec, :, kwp + 1] = \
+                w1[:, :, :, dw + 1]
+    x = _conv_nhwc(x, wp, None, 1) + conv1.bias.to(dtype).repeat(2)
+    x = layer_norm(x.reshape(b, hh, wp2, 2, dec), ln.weight, ln.bias,
+                   eps=1e-6).reshape(b, hh, wp2, cc)
+    x = _gelu(x, model.cfg.gelu_approximate)
+    w2 = conv2.weight.to(dtype)[:, :, 0, 0].t()  # (dec, 3)
+    w2p = w2.new_zeros((2 * dec, 6))
+    w2p[:dec, :3] = w2
+    w2p[dec:, 3:] = w2
+    x = x @ w2p + conv2.bias.to(dtype).repeat(2)
+    return x.reshape(b, hh, wp2 * 2, 3)
 
 
 def pixel_mask_from_patch_mask(bool_masked_pos: torch.Tensor,
@@ -520,10 +584,12 @@ def forward(model: InContextViT, imgs: torch.Tensor, tgts: torch.Tensor,
             seg_type: Optional[torch.Tensor] = None,
             merge_between_batch: int = -1, attn_impl: str = "kernel",
             train: bool = False, generator: Optional[torch.Generator] = None,
-            remat: bool = False, remat_policy: str = "save_kernel"):
+            remat: bool = False, remat_policy: str = "save_kernel",
+            decoder_impl: str = "xla"):
     """Full forward -> (loss, patchified pred, bool_masked_pos), as
     ``models_painter.py:464-472`` (NHWC in and out); ``train`` and the
-    rest as :func:`forward_encoder`."""
+    rest as :func:`forward_encoder`, ``decoder_impl`` as
+    :func:`forward_decoder`."""
     cfg = model.cfg
     b = imgs.shape[0]
     num_patches = (imgs.shape[1] // cfg.patch_size) * \
@@ -540,7 +606,7 @@ def forward(model: InContextViT, imgs: torch.Tensor, tgts: torch.Tensor,
                             attn_impl=attn_impl, train=train,
                             generator=generator, remat=remat,
                             remat_policy=remat_policy)
-    pred = forward_decoder(model, feats)
+    pred = forward_decoder(model, feats, decoder_impl=decoder_impl)
     loss = forward_loss(cfg, pred, tgts, bool_masked_pos, valid)
     return loss, patchify(pred.float(), cfg.patch_size), bool_masked_pos
 

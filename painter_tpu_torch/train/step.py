@@ -26,7 +26,7 @@ def _loss(cfg: ModelConfig, model, micro: Dict[str, torch.Tensor], **kw):
 def make_train_step(cfg: ModelConfig, optimizer: LayerDecayAdamW,
                     accum_iter: int = 1, remat: bool = True,
                     remat_policy: str = "save_kernel",
-                    attn_impl: str = "kernel"):
+                    attn_impl: str = "kernel", decoder_impl: str = "auto"):
     """Returns step(model, batch, generator) -> {"loss", "grad_norm"}.
 
     batch: dict of device tensors 'imgs', 'tgts' (B, H, W, 3), 'mask'
@@ -34,10 +34,14 @@ def make_train_step(cfg: ModelConfig, optimizer: LayerDecayAdamW,
     accum_iter > 1 every leaf carries a leading (accum_iter,) micro-batch
     axis. ``generator`` draws the drop-path masks. The metrics are 0-d
     device tensors, read without a host sync until the caller asks.
+    ``decoder_impl`` "auto" resolves to "xla", the stock tail, as in the
+    JAX step; "fused" runs the decoder tail through K3 / K4.
     """
     if remat_policy not in model_lib.REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} is not ported; the "
                          f"port has {model_lib.REMAT_POLICIES}")
+    if decoder_impl == "auto":
+        decoder_impl = "xla"
 
     def train_step(model, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]):
@@ -49,7 +53,7 @@ def make_train_step(cfg: ModelConfig, optimizer: LayerDecayAdamW,
         for micro in micros:
             loss = _loss(cfg, model, micro, attn_impl=attn_impl, train=True,
                          generator=generator, remat=remat,
-                         remat_policy=remat_policy)
+                         remat_policy=remat_policy, decoder_impl=decoder_impl)
             # .grad sums the micro-batches' gradients
             loss.backward()
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
@@ -63,7 +67,8 @@ def make_train_step(cfg: ModelConfig, optimizer: LayerDecayAdamW,
 
 
 def make_eval_step(cfg: ModelConfig, attn_impl: str = "kernel"):
-    """Masked-loss validation step (``engine_train.py:147-203``)."""
+    """Masked-loss validation step (``engine_train.py:147-203``), with the
+    stock decoder tail as the JAX ``make_eval_step``."""
 
     @torch.no_grad()
     def eval_step(model, batch: Dict[str, torch.Tensor]):

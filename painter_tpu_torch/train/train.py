@@ -82,8 +82,11 @@ def get_args_parser():
                         "attention differentiated by autograd")
     p.add_argument("--decoder_impl", default="auto",
                    choices=["auto", "xla", "fused"],
-                   help="'auto' and 'xla' run the plain decoder tail; "
-                        "'fused' (the decoder-tail kernel) is not ported")
+                   help="'auto' and 'xla' run the stock decoder tail; "
+                        "'fused' runs it through the fused decoder-tail "
+                        "kernels (forward and backward) on the card, their "
+                        "plain versions on the CPU; validation keeps the "
+                        "stock tail")
     p.add_argument("--max_steps_per_epoch", default=-1, type=int,
                    help="truncate epochs (smoke tests)")
     p.add_argument("--watchdog_freq", default=10, type=int,
@@ -105,10 +108,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "multi-GPU training (--distributed, --n_fsdp > 1) is not ported "
             "yet: the port trains on one device")
-    if args.decoder_impl == "fused":
-        raise NotImplementedError(
-            "--decoder_impl fused (the fused decoder-tail kernel) is not "
-            "ported yet; use auto or xla")
     if args.remat_policy not in ("full", "save_kernel"):
         raise NotImplementedError(
             f"--remat_policy {args.remat_policy} is not ported yet; the port "
@@ -176,7 +175,8 @@ def main(args=None):
     optimizer = optim.LayerDecayAdamW(model, cfg, oc)
     train_step = step_lib.make_train_step(
         cfg, optimizer, accum_iter=args.accum_iter, remat=args.remat,
-        remat_policy=args.remat_policy, attn_impl=args.attn_impl)
+        remat_policy=args.remat_policy, attn_impl=args.attn_impl,
+        decoder_impl=args.decoder_impl)
     eval_step = step_lib.make_eval_step(cfg, attn_impl=args.attn_impl)
     # drop-path masks; saved and restored with the checkpoints
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)

@@ -1,0 +1,204 @@
+"""PyTorch port: the fused decoder tail's plain versions (K3 forward, K4
+backward) against the JAX package's ``fused_decoder_tail``, which runs its
+Pallas kernels in interpret mode on the CPU.
+
+Inputs are numpy normals from a seed. Tolerances: fp32 forward 1e-4
+absolute and gradients 5e-4 x each gradient's max abs (the JAX kernel
+test's own limits, ``tests/test_decoder_head.py``). bf16: both sides round
+at the same points (weights, row vectors, the GELU output, du and the
+output cast to bf16), so they differ only where an fp32 sum taken in
+another order lands on the other side of a bf16 rounding boundary: the
+output by at most one bf16 step at its largest magnitude (2^-7 x max
+|out|), the gradients by 1e-2 x their max abs (du's bf16 rounding flips,
+each 2^-8 relative, summed over a 3x3 window and 64 channels).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from painter_tpu.kernels.decoder_head import fused_decoder_tail as j_tail
+from painter_tpu_torch.kernels import decoder_head as dh
+
+from torch_port_common import t
+
+GRAD_RTOL = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
+NAMES = ("dpix", "dconv1_w", "dconv1_b", "dln_w", "dln_b", "dconv2_w",
+         "dconv2_b")
+
+
+def _inputs(seed, b=2, h=16, w=12, c=8):
+    """numpy (pix, conv1 HWIO, b1, LN scale, LN bias, conv2 HWIO, b2)."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    return (rng.randn(b, h, w, c).astype(f),
+            (0.2 * rng.randn(3, 3, c, c)).astype(f),
+            (0.1 * rng.randn(c)).astype(f),
+            (1.0 + 0.1 * rng.randn(c)).astype(f),
+            (0.1 * rng.randn(c)).astype(f),
+            (0.2 * rng.randn(1, 1, c, 3)).astype(f),
+            (0.1 * rng.randn(3)).astype(f))
+
+
+def _port_args(args, dtype):
+    """The same values in the port's layout (conv weights (out, in, kh,
+    kw)); pixels in ``dtype``, params fp32."""
+    pix, c1k, c1b, lns, lnb, c2k, c2b = args
+    return (t(pix).to(dtype), t(c1k.transpose(3, 2, 0, 1)), t(c1b), t(lns),
+            t(lnb), t(c2k.transpose(3, 2, 0, 1)), t(c2b))
+
+
+def _jax_args(args, dtype):
+    return (jnp.asarray(args[0], dtype),) + tuple(jnp.asarray(a)
+                                                  for a in args[1:])
+
+
+def _jax_grads(args, dtype, approx, go):
+    def loss(*a):
+        out = j_tail(*a, approx).astype(jnp.float32)
+        return jnp.sum(out * go)
+    g = jax.grad(loss, argnums=tuple(range(7)))(*_jax_args(args, dtype))
+    g = [np.asarray(x, np.float32) for x in g]
+    # to the port's layouts
+    g[1] = g[1].transpose(3, 2, 0, 1)
+    g[5] = g[5].transpose(3, 2, 0, 1)
+    return g
+
+
+def _close_rel(got, ref, rtol, name):
+    err = np.abs(got - ref).max()
+    assert err <= rtol * max(np.abs(ref).max(), 1e-30), (name, err,
+                                                          np.abs(ref).max())
+
+
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 8), (2, 4, 8, 8)],
+                         ids=["grid", "one_token_row"])
+def test_forward_matches_jax_fp32(approx, shape):
+    """fp32 forward, both GELU flavours; (2, 4, 8, 8) is a one-token-row
+    grid at patch 4 (its row block is the whole height)."""
+    b, h, w, c = shape
+    args = _inputs(1, b, h, w, c)
+    ref = np.asarray(j_tail(*_jax_args(args, jnp.float32), approx))
+    got = dh.fused_decoder_tail(*_port_args(args, torch.float32), approx)
+    assert got.dtype == torch.float32 and got.shape == (b, h, w, 3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_forward_matches_jax_bf16(approx):
+    args = _inputs(2)
+    ref = np.asarray(j_tail(*_jax_args(args, jnp.bfloat16), approx),
+                     np.float32)
+    got = dh.fused_decoder_tail(*_port_args(args, torch.bfloat16), approx)
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= 2.0 ** -7 * np.abs(ref).max(), err
+
+
+def test_forward_matches_stock_tail_fp32():
+    """The plain version == conv3x3 -> F.layer_norm -> GELU -> conv1x1."""
+    args = _port_args(_inputs(3), torch.float32)
+    pix, w1, b1, lns, lnb, w2, b2 = args
+    x = F.conv2d(pix.permute(0, 3, 1, 2), w1, b1, padding=1)
+    x = F.layer_norm(x.permute(0, 2, 3, 1), (8,), lns, lnb, eps=1e-6)
+    ref = F.conv2d(F.gelu(x).permute(0, 3, 1, 2), w2, b2).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(
+        dh.fused_decoder_tail(*args, False).numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 8), (2, 4, 8, 8)],
+                         ids=["grid", "one_token_row"])
+def test_backward_matches_jax(dtype, approx, shape):
+    """The plain backward (the kernel's math) == jax.grad through the JAX
+    kernel's custom VJP, all seven gradients."""
+    b, h, w, c = shape
+    args = _inputs(4, b, h, w, c)
+    go = np.random.RandomState(5).randn(b, h, w, 3).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = _jax_grads(args, jdt, approx, go)
+    pix, w1, b1, lns, lnb, w2, _ = _port_args(args, dtype)
+    got = dh.fused_decoder_tail_bwd(pix, w1, b1, lns, lnb, w2,
+                                    t(go).to(dtype), approx)
+    assert got[0].dtype == dtype
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    for name, a, r in zip(NAMES, got, ref):
+        assert tuple(a.shape) == r.shape, name
+        _close_rel(a.float().numpy(), r, GRAD_RTOL[dtype], name)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_autograd_function_reaches_all_seven_inputs(approx):
+    """FusedDecoderTail: the forward is the plain forward, and backward
+    through it gives every input its gradient, equal to the plain
+    backward's, and to autograd of the stock fp32 tail."""
+    args = _port_args(_inputs(6), torch.float32)
+    leaves = [a.clone().requires_grad_() for a in args]
+    go = t(np.random.RandomState(7).randn(2, 16, 12, 3))
+    out = dh.decoder_tail_fn(*leaves, approx)
+    np.testing.assert_array_equal(
+        out.detach().numpy(), dh.fused_decoder_tail(*args, approx).numpy())
+    (out * go).sum().backward()
+    ref = dh.fused_decoder_tail_bwd(*args[:6], go, approx)
+    for name, leaf, r in zip(NAMES, leaves, ref):
+        assert leaf.grad is not None, name
+        torch.testing.assert_close(leaf.grad, r, rtol=0, atol=0)
+
+    stock = [a.clone().requires_grad_() for a in args]
+    pix, w1, b1, lns, lnb, w2, b2 = stock
+    x = F.conv2d(pix.permute(0, 3, 1, 2), w1, b1, padding=1)
+    x = F.layer_norm(x.permute(0, 2, 3, 1), (8,), lns, lnb, eps=1e-6)
+    x = F.gelu(x, approximate="tanh" if approx else "none")
+    y = F.conv2d(x.permute(0, 3, 1, 2), w2, b2).permute(0, 2, 3, 1)
+    (y * go).sum().backward()
+    for name, leaf, s in zip(NAMES, leaves, stock):
+        _close_rel(leaf.grad.numpy(), s.grad.numpy(), 5e-4, name)
+
+
+def test_gelu_grad_matches_autograd():
+    x = torch.linspace(-6, 6, 241, dtype=torch.float64, requires_grad=True)
+    for approx in (False, True):
+        y = F.gelu(x, approximate="tanh" if approx else "none")
+        (g,) = torch.autograd.grad(y.sum(), x)
+        torch.testing.assert_close(dh.gelu_grad(x.detach(), approx), g,
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA device gets no
+    plain version: the wrappers raise."""
+    args = [a.to("meta") for a in _port_args(_inputs(8), torch.float32)]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        dh.fused_decoder_tail(*args, True)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        dh.fused_decoder_tail_bwd(*args[:6], args[0][..., :3], True)
+
+
+def test_kernel_sources_note_their_tpu_kernels_and_headers_are_hashed(
+        tmp_path, monkeypatch):
+    """Each new source names the TPU kernel it replaces and exposes a C
+    launcher; an edit of the shared header changes the build target of
+    the sources that include it, so a stale library is never loaded."""
+    import shutil
+    from painter_tpu_torch.kernels import build
+    notes = {
+        "decoder_tail_fwd": "painter_tpu/kernels/decoder_head.py:_fwd_impl",
+        "decoder_tail_bwd": "painter_tpu/kernels/decoder_head.py:_bwd_impl",
+        "int8_mlp": "painter_tpu/kernels/int8_mlp.py:_int8_mlp_2d"}
+    for name, note in notes.items():
+        assert name in build.SOURCES
+        with open(f"{build.CSRC}/{name}.cu") as f:
+            src = f.read()
+        assert note in src and 'extern "C"' in src, name
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    before = build._target("decoder_tail_fwd")
+    with open(csrc / "decoder_tail_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build._target("decoder_tail_fwd") != before

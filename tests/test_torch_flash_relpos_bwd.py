@@ -198,7 +198,9 @@ def test_bwd_rel_entries_limit():
 def test_bwd_build_target_and_source_note():
     path = build._target("flash_relpos_bwd")
     assert path.startswith(build.BUILD_DIR) and "flash_relpos_bwd-" in path
-    assert set(build.SOURCES) == {"flash_relpos_fwd", "flash_relpos_bwd"}
+    assert set(build.SOURCES) == {"flash_relpos_fwd", "flash_relpos_bwd",
+                                  "decoder_tail_fwd", "decoder_tail_bwd",
+                                  "int8_mlp"}
     with open("/".join([build.CSRC, "flash_relpos_bwd.cu"])) as f:
         src = f.read()
     assert "painter_tpu/kernels/flash_relpos.py:_bwd_impl" in src

@@ -4,6 +4,7 @@ one set of weights carried across by ``state_dict_from_jax_params``.
 Tolerances: pred atol 2e-5 / loss rtol 1e-5 (fp32 through 6 blocks, sums
 in another order than XLA's)."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -185,3 +186,62 @@ def test_bf16_forward_close_to_jax():
         got = tm.predict_query_half_batch(model, t(imgs), t(tgts), t(mask))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=0.1)
+
+
+def _by_name(tree_np, cfg_t):
+    return {k: v.numpy() for k, v in
+            convert.state_dict_from_jax_params(tree_np, cfg_t).items()}
+
+
+@pytest.mark.parametrize("impl", ["packed", "fused"])
+def test_forward_decoder_impls_match_jax(impl):
+    """forward_decoder with the packed tail (plain torch) and the fused
+    tail (its plain versions on the CPU) against the JAX impl of the same
+    name, fp32: the painted output 1e-5 and every decoder gradient 1e-4 x
+    its max abs (sums in another order), and against the port's stock
+    tail."""
+    cfg_j, cfg_t, params, model = _pair("painter", seed=8, dtype="float32")
+    gh, gw = cfg_j.grid_size
+    rng = np.random.RandomState(9)
+    feats = [(0.2 * rng.randn(2, gh, gw, cfg_j.embed_dim)).astype(np.float32)
+             for _ in range(4)]
+    wsum = rng.randn(2, *cfg_j.img_size, 3).astype(np.float32)
+
+    def loss_j(p):
+        return jnp.sum(wsum * jm.forward_decoder(p, cfg_j, feats,
+                                                 decoder_impl=impl))
+
+    params_j = jax.tree_util.tree_map(jnp.asarray, params)
+    ref, gref = jax.value_and_grad(loss_j)(params_j)
+    pred_j = jm.forward_decoder(params_j, cfg_j, feats, decoder_impl=impl)
+    gref = _by_name(jax.tree_util.tree_map(np.asarray, gref), cfg_t)
+    pred = tm.forward_decoder(model, [t(f) for f in feats],
+                              decoder_impl=impl)
+    np.testing.assert_allclose(pred.detach().numpy(), np.asarray(pred_j),
+                               atol=1e-5)
+    loss = (pred * t(wsum)).sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref), rtol=1e-5)
+    for name, p in model.named_parameters():
+        if name.startswith("decoder"):
+            err = np.abs(p.grad.numpy() - gref[name]).max()
+            assert err <= 1e-4 * np.abs(gref[name]).max(), (name, err)
+    with torch.no_grad():
+        stock = tm.forward_decoder(model, [t(f) for f in feats])
+    np.testing.assert_allclose(pred.detach().numpy(), stock.numpy(),
+                               atol=1e-5)
+
+
+def test_forward_decoder_rejects_odd_packed_width_and_unknown_impl():
+    cfg_j, cfg_t, params, model = _pair("painter", seed=10)
+    d = cfg_t.embed_dim
+    odd = [torch.zeros(1, 2, 1, d) for _ in range(4)]  # w*p = 8: even
+    tm.forward_decoder(model, odd, decoder_impl="packed")
+    with pytest.raises(ValueError, match="even painted width"):
+        cfg_odd = tcfg.tiny_test_config(patch_size=7)
+        with torch.device("meta"):
+            m_odd = tm.InContextViT(cfg_odd)
+        tm.forward_decoder(m_odd, [torch.zeros(1, 2, 1, d, device="meta")
+                                   for _ in range(4)], decoder_impl="packed")
+    with pytest.raises(ValueError, match="decoder_impl"):
+        tm.forward_decoder(model, odd, decoder_impl="pallas")
