@@ -64,7 +64,7 @@ K2_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # fp32 ViT-L forward, kernel vs plain attention, [0,1] painted scale:
 # 24 blocks of fp32 sums in another order
 FWD_FP32_TOL = 1e-3
-# bf16 ViT-L forward (the WMMA kernel that serves the path) against the
+# bf16 ViT-L forward (the wgmma kernel that serves the path) against the
 # same bf16 forward with plain attention, and the bf16 engine output
 # against the fp32 plain forward, [0,1] scale: every activation is
 # rounded to 8 mantissa bits (2^-9 relative) over 24 blocks; the bf16
@@ -146,6 +146,9 @@ def k1_case(bh, grid, dtype, seed, iters):
     library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale),
                          iters)
     del bias
+    # the card's own attention at head_dim 64 with no bias: not the same
+    # function, a yardstick of the kernel's design only
+    nobias_ms = cuda_ms(lambda: sdpa(q, k, v, scale=scale), iters)
     flops = 4 * bh * length * length * d
     es = q.element_size()
     nbytes = (4 * bh * length * d + bh * length * sum(grid)) * es \
@@ -155,8 +158,15 @@ def k1_case(bh, grid, dtype, seed, iters):
     return {"bh": bh, "grid": list(grid), "dtype": str(dtype),
             "max_abs_err": err, "lse_err": lse_err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "flop": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "sdpa_nobias_ms": nobias_ms, "flop": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _rate(row):
+    """Achieved TFLOP/s and the share of the bound, for a '#' line."""
+    return (f"{row['flop'] / row['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound")
 
 
 def phase_k1(label):
@@ -169,9 +179,11 @@ def phase_k1(label):
             print(f"# K1 {row['dtype']} BH={bh} L={grid[0] * grid[1]} "
                   f"grid={grid[0]}x{grid[1]}: max_abs_err "
                   f"{row['max_abs_err']:.3e} kernel_ms {row['ms']:.4f} "
-                  f"plain_ms {row['plain_ms']:.4f} library_ms(sdpa+bias) "
-                  f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
-                  f"({row['flop']:.4e} FLOP at "
+                  f"({_rate(row)}) plain_ms {row['plain_ms']:.4f} "
+                  f"library_ms(sdpa+bias) {row['library_ms']:.4f} "
+                  f"sdpa_nobias_ms(not the same function) "
+                  f"{row['sdpa_nobias_ms']:.4f} bound_ms "
+                  f"{row['bound_ms']:.4f} ({row['flop']:.4e} FLOP at "
                   f"{'989' if dtype == torch.bfloat16 else '67'} TFLOP/s, "
                   f"{row['bound_by']}) [{label}]")
     return rows
@@ -182,6 +194,7 @@ def k2_case(bh, grid, dtype, seed, iters):
 
     out and lse come from K1's plain version on the same q, k, v and rel
     terms, dO from a seeded normal; both backwards read the same tensors.
+    K2 runs twice and must agree with itself to the bit (no atomics).
     """
     from painter_tpu_torch.kernels import flash_relpos as fr
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -198,9 +211,13 @@ def k2_case(bh, grid, dtype, seed, iters):
                                                    grid, scale)
     args = (q, k, v, rel_h, rel_w, out, lse, dout, grid, scale)
     got = fr.flash_attention_relpos_bwd(*args)
+    again = fr.flash_attention_relpos_bwd(*args)
     ref = fr.flash_attention_relpos_bwd_reference(*args)
     torch.cuda.synchronize()
     names = ("dq", "dk", "dv", "d_rel_h", "d_rel_w")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K2 {dtype} {bh}x{grid}: two runs on the same inputs differ")
+    del again
     rel_errs = {}
     for name, a, b in zip(names, got, ref):
         check(torch.isfinite(a).all().item(),
@@ -226,7 +243,13 @@ def k2_case(bh, grid, dtype, seed, iters):
         *leaves, attn_mask=bias, scale=scale)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves + [bias], dout, retain_graph=True), iters)
-    del sdpa_out, bias, leaves
+    del sdpa_out, bias
+    # SDPA's backward with no bias: not the same function, a yardstick only
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, scale=scale)
+    nobias_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, dout, retain_graph=True), iters)
+    del sdpa_out, leaves
     flops = 10 * bh * length * length * d
     es = q.element_size()
     # read q, k, v, dO, out, rel_h, rel_w, lse; write dq, dk, dv and both
@@ -237,7 +260,8 @@ def k2_case(bh, grid, dtype, seed, iters):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return {"bh": bh, "grid": list(grid), "dtype": str(dtype),
             "max_abs_err": err, "rel_errs": rel_errs, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "flop": flops,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "sdpa_nobias_ms": nobias_ms, "flop": flops,
             "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -252,9 +276,12 @@ def phase_k2(label):
             errs = " ".join(f"{n} {e:.2e}" for n, e in row["rel_errs"].items())
             print(f"# K2 {row['dtype']} BH={bh} L={grid[0] * grid[1]} "
                   f"grid={grid[0]}x{grid[1]}: max_abs_err "
-                  f"{row['max_abs_err']:.3e} (err/max|plain|: {errs}) "
-                  f"kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                  f"{row['max_abs_err']:.3e} (err/max|plain|: {errs}; two "
+                  f"runs bitwise equal) kernel_ms {row['ms']:.4f} "
+                  f"({_rate(row)}) plain_ms {row['plain_ms']:.4f} "
                   f"library_ms(sdpa bwd, bias grad) {row['library_ms']:.4f} "
+                  f"sdpa_nobias_ms(not the same function) "
+                  f"{row['sdpa_nobias_ms']:.4f} "
                   f"bound_ms {row['bound_ms']:.4f} ({row['flop']:.4e} FLOP "
                   f"at {'989' if dtype == torch.bfloat16 else '67'} TFLOP/s, "
                   f"{row['bound_by']}) [{label}]")

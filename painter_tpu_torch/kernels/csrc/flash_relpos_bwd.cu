@@ -18,140 +18,124 @@
 // Inputs q, k, v, dout (BH, L, 64), rel_h (BH, L, kh), rel_w (BH, L, kw),
 // all contiguous and of one type (bf16 or fp32); lse, delta (BH, L) fp32.
 // Outputs in the input type. P and dS are rounded to the input type before
-// the three products that read them (dv, dq, dk), as K1 rounds P before
-// P.V; every product accumulates in fp32, and the rel-bias row sums are
-// taken in fp32 from the unrounded dS.
+// every product that reads them (dv; dq, dk and both rel-bias sums), as K1
+// rounds P before P.V and as the JAX kernel forms its bias gradients from
+// the rounded dS (ds_b, flash_relpos.py:366); every product accumulates in
+// fp32.
 //
 // What bounds it on an H100: operations. Five matrix products of BH * L^2
 // * 64 multiply-adds each (S and dP are recomputed, then dv, dq, dk) --
 // 10 * BH * L^2 * 64 FLOP -- against IO of a few MB per head, far above
-// the card's balance point of ~295 FLOP per byte.
+// the card's balance point of ~295 FLOP per byte. As in the forward, each
+// logit also costs one exp2f on the SFUs (16 per clock per SM, the rate at
+// which the tensor cores finish a logit's 256 FLOP of S at head_dim 64),
+// so the per-logit fp32 work has to stay in registers.
 //
-// Design (FA2-style, two kernels, deterministic -- no atomics):
-//   (a) dq kernel: one CTA of 4 warps per (64-row query tile, bh). K/V
-//       tiles of 64 keys stream through shared memory. Each warp owns 16
-//       query rows: S = Q.K^T and dP = dO.V^T on the tensor cores (WMMA
-//       16x16x16 bf16, fp32 accumulate) into shared memory, then the
-//       scalar pass forms P and dS with the rel terms of the CTA's rows
-//       (held in shared memory, as K1 does) and writes dS over the V
-//       tile, which every warp has finished reading, and dq += dS.K runs
-//       on the tensor cores into accumulator fragments that stay in
-//       registers across the key loop. At the 56x28 grid in bf16 this
-//       keeps the CTA at 112 KiB of shared memory, two CTAs per SM. The
-//       same CTA owns its rows' d_rel_h / d_rel_w sums in shared memory
-//       (64 x (kh + kw) fp32): each (row, bin) is summed by one fixed
-//       lane per key tile, so no atomics are needed and the order of the
-//       sums is fixed.
-//   (b) dk/dv kernel: one CTA per (64-key tile, bh) streams query tiles
-//       with their lse, delta, dO and the rel terms of the key-grid rows
-//       and columns that the key tile touches. Each warp owns 16 keys and
-//       computes S^T = K.Q^T and dP^T = V.dO^T, then dv += P^T.dO and
-//       dk += dS^T.Q into register fragments.
-// Ragged tiles (L = 1568, 2450, 196 are not multiples of 64): K/Q/V/dO
-// rows past L are zero-filled, and P and dS are forced to 0 for keys and
-// queries past L, so padded rows can never put NaN or garbage into a sum.
-// What it does not do yet: the logits take a round trip through shared
-// memory every tile, loads are synchronous (no cp.async / TMA ring), the
-// products are WMMA (mma.sync class) rather than wgmma, and the two
-// kernels recompute S and dP twice. The fp32 instantiation does the
-// products in scalar FMAs: it exists for tight comparisons, not speed.
+// Design: two kernels, deterministic -- no atomics, every sum in a fixed
+// order, so two runs on the same inputs agree to the bit.
+//   (a) dq kernel: one CTA per (128 query rows, bh) walks the key tiles. It
+//       owns its rows' d_rel_h / d_rel_w, so no other CTA writes them.
+//   (b) dk/dv kernel: one CTA per (128 keys, bh) walks the query tiles.
+// Each kernel computes in its own orientation (S in (a), S^T = K.Q^T in
+// (b)), so no operand needs a transpose through shared memory: the split
+// recomputes S and dP in both kernels (seven products where one pass with
+// atomics for dq would need five) and buys determinism with it.
+// bf16, both kernels (sm_90a): three warpgroups. Warpgroup 2 produces and
+// gives its registers up (setmaxnreg 24; the consumers take 240): the CTA's
+// own 128 rows once (Q and dO in (a), K and V in (b)) and 64-row tiles of
+// the other side through a ring of 3 stages guarded by full / empty
+// mbarriers, all by TMA (3-D tensor maps of (64, L, BH), 128-byte swizzle,
+// rows past a head's end zero-filled). Each consumer warpgroup owns 64 rows,
+// two per thread:
+//   - S and dP (S^T, dP^T in (b)) are accumulated in registers by wgmma
+//     m64n64k16 with A and B K-major from the swizzled tiles;
+//   - P = exp2(S * scale * log2e + rel - lse * log2e) and dS = P (dP -
+//     delta) are formed on the accumulator fragments and converted to bf16
+//     in registers, where the accumulator layout is the A-fragment layout
+//     of the next products;
+//   - dq += dS.K (a), dv += P^T.dO and dk += dS^T.Q (b) are wgmma m64n64k16
+//     with A from registers and B MN-major from the same swizzled tiles that
+//     fed S, accumulated in registers across the loop;
+//   - d_rel_w in (a) is dS times the key tile's one-hot key -> grid column
+//     expander (kw <= 40 columns in n-tiles of 8), accumulated in fp32
+//     registers across the key loop; d_rel_h is dS times the tile's one-hot
+//     key -> grid row expander (at most 8 rows: kw >= 10), added per tile
+//     into the warp's shared-memory row sums. These two products run on
+//     mma.sync m16n8k16 on the same dS registers (a warp's 16 rows of the
+//     wgmma accumulator are the mma.sync A layout); both expanders are
+//     windows of one static bf16 matrix E[r][c] (r % kw == c, and r / kw ==
+//     c - 40) built once per CTA, read by ldmatrix from row k0 % kw on;
+//   - nothing of S, dP, P or dS is written to shared memory.
+// The rel terms do not go by TMA (their rows are not 16-byte multiples).
+// (a) copies its rows' contiguous rel_h / rel_w blocks raw by cp.async once
+// (into ring stages 1-2, before their first tiles) and rewrites them as
+// fp32 pairs (row r, row r + 8) pre-scaled by log2(e); it gathers a tile's
+// biases into registers while S and dP are in flight (a key's grid row is
+// (key + 0.5) / kw in fp32). (b) streams each query tile's rel_h, rel_w,
+// lse and delta blocks raw into the tile's stage, copied by the producer
+// warp's cp.async and signalled on the stage's full barrier
+// (cp.async.mbarrier.arrive), and reads them as bf16 / fp32.
+// Ragged tiles (L = 1568, 2450, 196 are not multiples of 64): P and dS are
+// forced to 0 for keys and queries past L, so zero-filled rows never put
+// NaN or garbage into a sum.
+//
+// The fp32 instantiation is scalar code (the logits through fp32 shared
+// buffers, FMAs, synchronous loads) and sums the rel-bias gradients from
+// the fp32 dS: it exists for tight comparisons, not speed.
 //
 // The launcher allocates nothing and does not synchronize; it returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "flash_relpos_common.cuh"
 
 namespace {
 
-constexpr int D = 64;            // head dim
-constexpr int BT = 64;           // rows of every tile (queries or keys)
+constexpr int D = 64;    // head dim
+constexpr int BT = 64;   // rows of every tile (queries or keys)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int WROWS = BT / WARPS;  // rows per warp (16)
-constexpr int LDS = BT + 4;        // fp32 row stride of the S / dP buffers
 constexpr float LOG2E = 1.4426950408889634f;
 
-static_assert(WROWS == 16, "one WMMA row block per warp");
+// the number of kh bins (key-grid rows) that keys [k0, kend) touch
+__device__ __forceinline__ int bins_touched(int k0, int kend, int kw) {
+  return (kend - 1) / kw - k0 / kw + 1;
+}
+
+int max_bins(int kh, int kw) {
+  return kh < (BT - 1) / kw + 2 ? kh : (BT - 1) / kw + 2;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: scalar reference-grade kernels
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int LD = D + 4;   // row stride of every tile / buffer
 static_assert(BT == D, "the fp32 buffers hold both 64-key and 64-dim rows");
 
-template <typename T> struct Tile;
-template <> struct Tile<__nv_bfloat16> { static constexpr int LD = D + 8; };
-template <> struct Tile<float> { static constexpr int LD = D + 4; };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// rows [row0, row0 + 64) of a (L, D) matrix into shared memory; rows past
-// L are zero-filled
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int L, int tid) {
-  constexpr int LD = Tile<T>::LD;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int L, int tid) {
+  constexpr int CHUNKS = D / 4;
   for (int i = tid; i < BT * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * VEC;
+    const int c = (i % CHUNKS) * 4;
     const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < L) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gr < L) val = *reinterpret_cast<const float4*>(src + (size_t)gr * D + c);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
   }
 }
 
-// S (16 x BT, fp32, stride LDS) = A (16 x D) . B^T, B a (BT x D) tile
-template <typename T>
-__device__ void warp_abt(const T* a, const T* b, float* s, int lane);
-
-template <>
-__device__ void warp_abt<__nv_bfloat16>(const __nv_bfloat16* a,
-                                        const __nv_bfloat16* b, float* s,
-                                        int lane) {
-  constexpr int LD = Tile<__nv_bfloat16>::LD;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      fa[D / 16];
-#pragma unroll
-  for (int d = 0; d < D / 16; ++d)
-    wmma::load_matrix_sync(fa[d], a + d * 16, LD);
-#pragma unroll
-  for (int n = 0; n < BT / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int d = 0; d < D / 16; ++d) {
-      // B stored (row, d) row-major is B^T in column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * LD + d * 16, LD);
-      wmma::mma_sync(c, fa[d], fb, c);
-    }
-    wmma::store_matrix_sync(s + n * 16, c, LDS, wmma::mem_row_major);
-  }
-}
-
-// fp32: lane owns row lane/2 and the columns of parity lane%2
-template <>
-__device__ void warp_abt<float>(const float* a, const float* b, float* s,
-                                int lane) {
-  constexpr int LD = Tile<float>::LD;
+// S (16 x BT, stride LD) = A (16 x D) . B^T, B a (BT x D) tile; lane owns
+// row lane/2 and the columns of parity lane%2
+__device__ void warp_abt(const float* a, const float* b, float* s, int lane) {
   const int r = lane >> 1;
   const int h = lane & 1;
   float ar[D];
@@ -159,59 +143,19 @@ __device__ void warp_abt<float>(const float* a, const float* b, float* s,
   for (int d = 0; d < D; ++d) ar[d] = a[r * LD + d];
   for (int j = 0; j < BT / 2; ++j) {
     const float* br = b + (2 * j + h) * LD;
-    float acc = 0.0f;
+    float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) acc = fmaf(ar[d], br[d], acc);
-    s[r * LDS + 2 * j + h] = acc;
+    s[r * LD + 2 * j + h] = acc;
   }
 }
 
-// A warp's (16 x D) fp32 accumulator of products A (16 x BT) . B (BT x D),
-// both operands tiles in shared memory (stride Tile<T>::LD)
-template <typename T> struct Acc;
-
-template <> struct Acc<__nv_bfloat16> {
-  static constexpr int LD = Tile<__nv_bfloat16>::LD;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[D / 16];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(c[n], 0.0f);
-  }
-  __device__ void mma(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                      int lane) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fa[BT / 16];
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk)
-      wmma::load_matrix_sync(fa[kk], a + kk * 16, LD);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, b + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(c[n], fa[kk], fb, c[n]);
-      }
-    }
-  }
-  // (16 x D) fp32 into s (stride LDS)
-  __device__ void store(float* s, int lane) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(s + n * 16, c[n], LDS, wmma::mem_row_major);
-  }
-};
-
-// fp32: lane owns row lane/2 and the columns of parity lane%2
-template <> struct Acc<float> {
-  static constexpr int LD = Tile<float>::LD;
+// a warp's (16 x D) accumulator of A (16 x BT) . B (BT x D), both tiles
+struct Acc {
   float c[D / 2];
-
   __device__ void zero() {
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) c[j] = 0.0f;
+    for (int j = 0; j < D / 2; ++j) c[j] = 0.f;
   }
   __device__ void mma(const float* a, const float* b, int lane) {
     const int r = lane >> 1;
@@ -223,76 +167,49 @@ template <> struct Acc<float> {
       for (int j = 0; j < D / 2; ++j) c[j] = fmaf(ak, br[2 * j + h], c[j]);
     }
   }
-  __device__ void store(float* s, int lane) {
+  // rows at or past L are not written
+  __device__ void store(float* dst, int row0, int L, float mul, int lane) {
     const int r = lane >> 1;
     const int h = lane & 1;
+    if (row0 + r < L) {
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) s[r * LDS + 2 * j + h] = c[j];
+      for (int j = 0; j < D / 2; ++j)
+        dst[(size_t)(row0 + r) * D + 2 * j + h] = c[j] * mul;
+    }
   }
 };
 
-// rows of a warp's (16 x D) fp32 result in s -> global, scaled and cast;
-// rows at or past L are not written
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, const float* s,
-                                           int row0, int L, float mul,
-                                           int lane) {
-  for (int i = lane; i < WROWS * D; i += 32) {
-    const int r = i / D;
-    const int c = i % D;
-    if (row0 + r < L) {
-      dst[(size_t)(row0 + r) * D + c] = from_f32<T>(s[r * LDS + c] * mul);
-    }
-  }
-}
-
-// the number of kh bins (key-grid rows) that keys [k0, kend) touch
-__device__ __forceinline__ int bins_touched(int k0, int kend, int kw) {
-  return (kend - 1) / kw - k0 / kw + 1;
-}
-
-// the dq kernel's dS tile overwrites the V tile once every warp has
-// formed dP: 4 tiles, not 5, keep the bf16 kernel at the 56x28 grid under
-// the ~113 KiB that lets two CTAs share an SM
-template <typename T>
 size_t dq_smem_bytes(int kh, int kw) {
-  return 4 * (size_t)BT * Tile<T>::LD * sizeof(T)  // Q, dO, K, V (then dS)
-         + 2 * (size_t)BT * LDS * sizeof(float)    // S (then dS), dP
+  return 4 * (size_t)BT * LD * sizeof(float)        // Q, dO, K, V (then dS)
+         + 2 * (size_t)BT * LD * sizeof(float)      // S (then dS), dP
          + 2 * (size_t)BT * (kh + kw) * sizeof(float);  // rel terms, sums
 }
 
-template <typename T>
 size_t dkv_smem_bytes(int nbmax, int kw) {
-  return 6 * (size_t)BT * Tile<T>::LD * sizeof(T)  // K, V, Q, dO, P, dS
-         + 2 * (size_t)BT * LDS * sizeof(float)    // S^T, dP^T
+  return 6 * (size_t)BT * LD * sizeof(float)        // K, V, Q, dO, P, dS
+         + 2 * (size_t)BT * LD * sizeof(float)      // S^T, dP^T
          + (size_t)BT * (nbmax + kw + 2) * sizeof(float);  // rel, lse, delta
 }
 
 // (a) dq and the rel-bias gradients of one 64-row query tile
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_relpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const T* __restrict__ rel_h,
-                           const T* __restrict__ rel_w,
-                           const T* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           T* __restrict__ dq, T* __restrict__ drel_h,
-                           T* __restrict__ drel_w, int L, int kh, int kw,
-                           float scale) {
-  constexpr int LD = Tile<T>::LD;
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ rel_h,
+          const float* __restrict__ rel_w, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dq, float* __restrict__ drel_h,
+          float* __restrict__ drel_w, int L, int kh, int kw, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + BT * LD;
-  T* Ks = dOs + BT * LD;
-  T* Vs = Ks + BT * LD;        // V, then this tile's dS
-  float* Ss = reinterpret_cast<float*>(Vs + BT * LD);
-  float* dPs = Ss + BT * LDS;
-  float* Rh = dPs + BT * LDS;  // (BT, kh) rel_h * log2(e)
-  float* Rw = Rh + BT * kh;   // (BT, kw)
-  float* Gh = Rw + BT * kw;   // (BT, kh) d rel_h sums
-  float* Gw = Gh + BT * kh;   // (BT, kw) d rel_w sums
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + BT * LD;
+  float* Ks = dOs + BT * LD;
+  float* Vs = Ks + BT * LD;    // V, then this tile's dS
+  float* Ss = Vs + BT * LD;
+  float* dPs = Ss + BT * LD;
+  float* Rh = dPs + BT * LD;   // (BT, kh) rel_h * log2(e)
+  float* Rw = Rh + BT * kh;    // (BT, kw)
+  float* Gh = Rw + BT * kw;    // (BT, kh) d rel_h sums
+  float* Gw = Gh + BT * kh;    // (BT, kw) d rel_w sums
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BT;
@@ -305,15 +222,13 @@ flash_relpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile(dOs, dout + base, q0, L, tid);
   for (int i = tid; i < BT * kh; i += THREADS) {
     const int qr = q0 + i / kh;
-    Rh[i] = qr < L
-        ? to_f32(rel_h[((size_t)bh * L + qr) * kh + i % kh]) * LOG2E : 0.0f;
-    Gh[i] = 0.0f;
+    Rh[i] = qr < L ? rel_h[((size_t)bh * L + qr) * kh + i % kh] * LOG2E : 0.f;
+    Gh[i] = 0.f;
   }
   for (int i = tid; i < BT * kw; i += THREADS) {
     const int qr = q0 + i / kw;
-    Rw[i] = qr < L
-        ? to_f32(rel_w[((size_t)bh * L + qr) * kw + i % kw]) * LOG2E : 0.0f;
-    Gw[i] = 0.0f;
+    Rw[i] = qr < L ? rel_w[((size_t)bh * L + qr) * kw + i % kw] * LOG2E : 0.f;
+    Gw[i] = 0.f;
   }
 
   const int r = lane >> 1;
@@ -322,19 +237,19 @@ flash_relpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qr = q0 + row;
   const bool valid = qr < L;
   // padded query rows read no lse / delta: their P and dS are forced to 0
-  const float lse2 = valid ? lse[(size_t)bh * L + qr] * LOG2E : 0.0f;
-  const float dlt = valid ? delta[(size_t)bh * L + qr] : 0.0f;
-  const T* Qw = Qs + warp * WROWS * LD;
-  const T* dOw = dOs + warp * WROWS * LD;
-  T* dSw = Vs + warp * WROWS * LD;
-  float* Sw = Ss + warp * WROWS * LDS;
-  float* dPw = dPs + warp * WROWS * LDS;
+  const float lse2 = valid ? lse[(size_t)bh * L + qr] * LOG2E : 0.f;
+  const float dlt = valid ? delta[(size_t)bh * L + qr] : 0.f;
+  const float* Qw = Qs + warp * WROWS * LD;
+  const float* dOw = dOs + warp * WROWS * LD;
+  float* dSw = Vs + warp * WROWS * LD;
+  float* Sw = Ss + warp * WROWS * LD;
+  float* dPw = dPs + warp * WROWS * LD;
   const float* rh = Rh + row * kh;
   const float* rw = Rw + row * kw;
   float* Ghw = Gh + warp * WROWS * kh;
   float* Gww = Gw + warp * WROWS * kw;
   const float sc = scale * LOG2E;
-  Acc<T> dqa;
+  Acc dqa;
   dqa.zero();
 
   for (int k0 = 0; k0 < L; k0 += BT) {
@@ -343,8 +258,8 @@ flash_relpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile(Vs, v + base, k0, L, tid);
     __syncthreads();
 
-    warp_abt<T>(Qw, Ks, Sw, lane);
-    warp_abt<T>(dOw, Vs, dPw, lane);
+    warp_abt(Qw, Ks, Sw, lane);
+    warp_abt(dOw, Vs, dPw, lane);
     __syncthreads();  // every warp has read V: its rows take dS now
 
     const int kend = min(k0 + BT, L);
@@ -352,15 +267,15 @@ flash_relpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BT / 2; ++j) {
       const int c = 2 * j + h;
       const int key = k0 + c;
-      float ds = 0.0f;
+      float ds = 0.f;
       if (valid && key < kend) {
         const int kr = key / kw;
-        const float s2 = Sw[r * LDS + c] * sc + rh[kr] + rw[key - kr * kw];
+        const float s2 = Sw[r * LD + c] * sc + rh[kr] + rw[key - kr * kw];
         const float p = exp2f(s2 - lse2);
-        ds = p * (dPw[r * LDS + c] - dlt);
+        ds = p * (dPw[r * LD + c] - dlt);
       }
-      Sw[r * LDS + c] = ds;
-      dSw[r * LD + c] = from_f32<T>(ds);
+      Sw[r * LD + c] = ds;
+      dSw[r * LD + c] = ds;
     }
     __syncwarp();
 
@@ -372,17 +287,17 @@ flash_relpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int rr = i / nb;
       const int b = b0 + i % nb;
       const int j1 = min(b * kw + kw, kend);
-      float acc = 0.0f;
-      for (int j = max(b * kw, k0); j < j1; ++j) acc += Sw[rr * LDS + j - k0];
+      float acc = 0.f;
+      for (int j = max(b * kw, k0); j < j1; ++j) acc += Sw[rr * LD + j - k0];
       Ghw[rr * kh + b] += acc;
     }
     const int m0 = k0 % kw;
     for (int i = lane; i < WROWS * kw; i += 32) {
       const int rr = i / kw;
       const int c = i % kw;
-      float acc = 0.0f;
+      float acc = 0.f;
       for (int j = k0 + (c - m0 + kw) % kw; j < kend; j += kw)
-        acc += Sw[rr * LDS + j - k0];
+        acc += Sw[rr * LD + j - k0];
       Gww[rr * kw + c] += acc;
     }
 
@@ -390,44 +305,35 @@ flash_relpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
   }
 
-  dqa.store(Sw, lane);
-  __syncwarp();
-  store_rows<T>(dq + base, Sw, q0 + warp * WROWS, L, scale, lane);
+  dqa.store(dq + base, q0 + warp * WROWS, L, scale, lane);
   for (int i = lane; i < WROWS * kh; i += 32) {
     const int gq = q0 + warp * WROWS + i / kh;
-    if (gq < L)
-      drel_h[((size_t)bh * L + gq) * kh + i % kh] = from_f32<T>(Ghw[i]);
+    if (gq < L) drel_h[((size_t)bh * L + gq) * kh + i % kh] = Ghw[i];
   }
   for (int i = lane; i < WROWS * kw; i += 32) {
     const int gq = q0 + warp * WROWS + i / kw;
-    if (gq < L)
-      drel_w[((size_t)bh * L + gq) * kw + i % kw] = from_f32<T>(Gww[i]);
+    if (gq < L) drel_w[((size_t)bh * L + gq) * kw + i % kw] = Gww[i];
   }
 }
 
 // (b) dk and dv of one 64-key tile
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_relpos_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ rel_h,
-                            const T* __restrict__ rel_w,
-                            const T* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            T* __restrict__ dk, T* __restrict__ dv, int L,
-                            int kh, int kw, int nbmax, float scale) {
-  constexpr int LD = Tile<T>::LD;
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ rel_h,
+           const float* __restrict__ rel_w, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dk, float* __restrict__ dv, int L, int kh,
+           int kw, int nbmax, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BT * LD;
-  T* Qs = Vs + BT * LD;
-  T* dOs = Qs + BT * LD;
-  T* Ps = dOs + BT * LD;
-  T* dSs = Ps + BT * LD;
-  float* Ss = reinterpret_cast<float*>(dSs + BT * LD);
-  float* dPs = Ss + BT * LDS;
-  float* Rh = dPs + BT * LDS;   // (BT queries, nbmax) rel_h * log2(e)
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BT * LD;
+  float* Qs = Vs + BT * LD;
+  float* dOs = Qs + BT * LD;
+  float* Ps = dOs + BT * LD;
+  float* dSs = Ps + BT * LD;
+  float* Ss = dSs + BT * LD;
+  float* dPs = Ss + BT * LD;
+  float* Rh = dPs + BT * LD;    // (BT queries, nbmax) rel_h * log2(e)
   float* Rw = Rh + BT * nbmax;  // (BT queries, kw)
   float* Lse2 = Rw + BT * kw;   // (BT) lse * log2(e)
   float* Dlt = Lse2 + BT;       // (BT) delta
@@ -451,14 +357,14 @@ flash_relpos_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool kvalid = key < L;
   const int kr = kvalid ? key / kw - b0 : 0;  // bin, local to the tile
   const int kc = kvalid ? key % kw : 0;
-  const T* Kw = Ks + warp * WROWS * LD;
-  const T* Vw = Vs + warp * WROWS * LD;
-  T* Pw = Ps + warp * WROWS * LD;
-  T* dSw = dSs + warp * WROWS * LD;
-  float* Sw = Ss + warp * WROWS * LDS;
-  float* dPw = dPs + warp * WROWS * LDS;
+  const float* Kw = Ks + warp * WROWS * LD;
+  const float* Vw = Vs + warp * WROWS * LD;
+  float* Pw = Ps + warp * WROWS * LD;
+  float* dSw = dSs + warp * WROWS * LD;
+  float* Sw = Ss + warp * WROWS * LD;
+  float* dPw = dPs + warp * WROWS * LD;
   const float sc = scale * LOG2E;
-  Acc<T> dka, dva;
+  Acc dka, dva;
   dka.zero();
   dva.zero();
 
@@ -469,39 +375,37 @@ flash_relpos_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BT * nb; i += THREADS) {
       const int qr = q0 + i / nb;
       Rh[(i / nb) * nbmax + i % nb] = qr < L
-          ? to_f32(rel_h[((size_t)bh * L + qr) * kh + b0 + i % nb]) * LOG2E
-          : 0.0f;
+          ? rel_h[((size_t)bh * L + qr) * kh + b0 + i % nb] * LOG2E : 0.f;
     }
     for (int i = tid; i < BT * kw; i += THREADS) {
       const int qr = q0 + i / kw;
-      Rw[i] = qr < L
-          ? to_f32(rel_w[((size_t)bh * L + qr) * kw + i % kw]) * LOG2E
-          : 0.0f;
+      Rw[i] = qr < L ? rel_w[((size_t)bh * L + qr) * kw + i % kw] * LOG2E
+                     : 0.f;
     }
     for (int i = tid; i < BT; i += THREADS) {
       const bool ok = q0 + i < L;
-      Lse2[i] = ok ? lse[(size_t)bh * L + q0 + i] * LOG2E : 0.0f;
-      Dlt[i] = ok ? delta[(size_t)bh * L + q0 + i] : 0.0f;
+      Lse2[i] = ok ? lse[(size_t)bh * L + q0 + i] * LOG2E : 0.f;
+      Dlt[i] = ok ? delta[(size_t)bh * L + q0 + i] : 0.f;
     }
     __syncthreads();
 
-    warp_abt<T>(Kw, Qs, Sw, lane);    // S^T: 16 keys x 64 queries
-    warp_abt<T>(Vw, dOs, dPw, lane);  // dP^T
+    warp_abt(Kw, Qs, Sw, lane);    // S^T: 16 keys x 64 queries
+    warp_abt(Vw, dOs, dPw, lane);  // dP^T
     __syncwarp();
 
 #pragma unroll 4
     for (int j = 0; j < BT / 2; ++j) {
       const int c = 2 * j + h;  // query within the tile
-      float p = 0.0f;
-      float ds = 0.0f;
+      float p = 0.f;
+      float ds = 0.f;
       if (kvalid && q0 + c < L) {
-        const float s2 = Sw[r * LDS + c] * sc + Rh[c * nbmax + kr]
+        const float s2 = Sw[r * LD + c] * sc + Rh[c * nbmax + kr]
                          + Rw[c * kw + kc];
         p = exp2f(s2 - Lse2[c]);
-        ds = p * (dPw[r * LDS + c] - Dlt[c]);
+        ds = p * (dPw[r * LD + c] - Dlt[c]);
       }
-      Pw[r * LD + c] = from_f32<T>(p);
-      dSw[r * LD + c] = from_f32<T>(ds);
+      Pw[r * LD + c] = p;
+      dSw[r * LD + c] = ds;
     }
     __syncwarp();
 
@@ -510,52 +414,699 @@ flash_relpos_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
   }
 
-  dva.store(Sw, lane);
-  __syncwarp();
-  store_rows<T>(dv + base, Sw, k0 + warp * WROWS, L, 1.0f, lane);
-  __syncwarp();
-  dka.store(Sw, lane);
-  __syncwarp();
-  store_rows<T>(dk + base, Sw, k0 + warp * WROWS, L, scale, lane);
+  dva.store(dv + base, k0 + warp * WROWS, L, 1.f, lane);
+  dka.store(dk + base, k0 + warp * WROWS, L, scale, lane);
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* rel_h,
            const void* rel_w, const void* dout, const void* lse,
            const void* delta, void* dq, void* dk, void* dv, void* drel_h,
            void* drel_w, int bh, int L, int kh, int kw, float scale,
-           void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+           cudaStream_t st) {
   const dim3 grid((L + BT - 1) / BT, bh);
-  const size_t smem_a = dq_smem_bytes<T>(kh, kw);
+  const size_t smem_a = dq_smem_bytes(kh, kw);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_relpos_bwd_dq_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return (int)err;
-  flash_relpos_bwd_dq_kernel<T><<<grid, THREADS, smem_a, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(rel_h),
-      static_cast<const T*>(rel_w), static_cast<const T*>(dout),
+  dq_kernel<<<grid, THREADS, smem_a, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), static_cast<T*>(drel_h), static_cast<T*>(drel_w),
-      L, kh, kw, scale);
+      static_cast<float*>(dq), static_cast<float*>(drel_h),
+      static_cast<float*>(drel_w), L, kh, kw, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int nbmax = kh < (BT - 1) / kw + 2 ? kh : (BT - 1) / kw + 2;
-  const size_t smem_b = dkv_smem_bytes<T>(nbmax, kw);
-  err = cudaFuncSetAttribute(flash_relpos_bwd_dkv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_b);
+  const int nbmax = max_bins(kh, kw);
+  const size_t smem_b = dkv_smem_bytes(nbmax, kw);
+  err = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
   if (err != cudaSuccess) return (int)err;
-  flash_relpos_bwd_dkv_kernel<T><<<grid, THREADS, smem_b, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(rel_h),
-      static_cast<const T*>(rel_w), static_cast<const T*>(dout),
+  dkv_kernel<<<grid, THREADS, smem_b, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), L, kh, kw, nbmax, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), L, kh, kw, nbmax,
+      scale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, warp-specialized; rel-bias products on mma.sync
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int KW_MAX = 40;       // d rel_w columns held in registers
+constexpr int NW = (KW_MAX + 7) / 8;
+constexpr uint32_t ONE = 0x3F80u;  // bf16 1.0
+
+using namespace relpos;
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__host__ __device__ constexpr int pair_stride(int n) { return n | 1; }
+
+// The one-hot expanders of d rel_w and d rel_h as one bf16 matrix with a
+// row per key offset r < 64 + KW_MAX: columns [0, 40) are r % kw == col
+// (d rel_w, 5 n-tiles), columns [40, 48) are r / kw == col - 40 (d rel_h).
+// A key tile starting at k0 reads rows [k0 % kw, k0 % kw + 64): its keys'
+// grid columns, and grid rows counted from k0 / kw.
+constexpr int E_ROWS = BT + KW_MAX;
+constexpr int E_COLS = 48;
+constexpr int LDE = 56;  // 112-byte rows: 8 rows of an ldmatrix hit 8 banks
+
+// B fragments of two n-tiles [n0, n0 + 16) x keys [k0, k0 + 16) of E (.trans)
+__device__ __forceinline__ uint32_t e_addr(uint32_t e, int k0, int n0,
+                                           int lane) {
+  return e + ((k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDE + n0 +
+              (lane >> 4) * 8) * 2;
+}
+
+// (a) dq, d rel_h and d rel_w on wgmma: one CTA per (128 query rows, bh)
+// of three warpgroups. Warpgroup 2 produces: Q and dO of the CTA's rows
+// once, then K and V tiles of 64 keys through a ring of 3 stages (TMA,
+// 128-byte swizzle). Each consumer warpgroup owns 64 rows, two per thread:
+//   S = Q . K^T, dP = dO . V^T   wgmma m64n64k16, A and B K-major from
+//                                swizzled shared memory;
+//   dS on the accumulator fragments, to bf16 in registers;
+//   dq += dS . K                 wgmma m64n64k16, A from registers, B (the
+//                                K tile, MN-major) from shared memory;
+//   d rel_w += dS . E_w, this tile's d rel_h = dS . E_h   mma.sync m16n8k16
+//                                on the same fragments (a warp's slice of
+//                                the accumulator is the mma.sync A layout),
+//                                run while the dq product is in flight.
+constexpr int DQ_ROWS = 128;
+constexpr int DQ_THREADS = 384;
+constexpr int DQ_CONSUMERS = 256;
+constexpr int DQ_STAGES = 3;
+constexpr int KVT_BYTES = BT * 128;              // a K or V tile, 8 KiB
+constexpr int DQ_STAGE_BYTES = 2 * KVT_BYTES;
+constexpr int QR_BYTES = DQ_ROWS * 128;          // Q or dO of the CTA
+constexpr int E_BYTES = (E_ROWS * LDE * 2 + 1023) / 1024 * 1024;
+// [Q | dO | stages | barriers | E | rel pairs | d rel_h pairs]
+constexpr int DQ_OFF_ST = 2 * QR_BYTES;
+constexpr int DQ_OFF_BAR = DQ_OFF_ST + DQ_STAGES * DQ_STAGE_BYTES;
+constexpr int DQ_OFF_E = DQ_OFF_BAR + 1024;
+constexpr int DQ_OFF_REL = DQ_OFF_E + E_BYTES;
+static_assert(DQ_STAGES >= 3, "stages 1-2 stage the raw rel terms");
+
+size_t dq_smem_bytes(int kh, int kw) {
+  return 1024 + DQ_OFF_REL +
+         (size_t)(DQ_ROWS / 2) * pair_stride(kh + kw) * 8 +  // rel pairs
+         (size_t)(DQ_ROWS / 2) * kh * 8;                      // d rel_h pairs
+}
+
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const bf16* __restrict__ rel_h, const bf16* __restrict__ rel_w,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, bf16* __restrict__ drel_h,
+          bf16* __restrict__ drel_w, int L, int kh, int kw, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_q = smem_u32(smem);
+  const uint32_t s_do = s_q + QR_BYTES;
+  const uint32_t s_st = s_q + DQ_OFF_ST;
+  const uint32_t bar_full = s_q + DQ_OFF_BAR;           // DQ_STAGES x 8
+  const uint32_t bar_empty = bar_full + 8 * DQ_STAGES;  // DQ_STAGES x 8
+  const uint32_t bar_q = bar_empty + 8 * DQ_STAGES;
+  bf16* Es = reinterpret_cast<bf16*>(smem + DQ_OFF_E);
+  float2* rel = reinterpret_cast<float2*>(smem + DQ_OFF_REL);
+  const int rs = pair_stride(kh + kw);
+  float2* gh_sum = rel + (DQ_ROWS / 2) * rs;  // (64 row pairs, kh)
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * DQ_ROWS;
+  const int tid = threadIdx.x;
+  const int nt = (L + BT - 1) / BT;
+
+  auto load_kv = [&](int t) {
+    const int st = t % DQ_STAGES;
+    const uint32_t dst = s_st + st * DQ_STAGE_BYTES;
+    mbar_expect_tx(bar_full + 8 * st, 2 * KVT_BYTES);
+    tma_load(dst, &tm_k, t * BT, bh, bar_full + 8 * st);
+    tma_load(dst + KVT_BYTES, &tm_v, t * BT, bh, bar_full + 8 * st);
+  };
+  if (tid == 256) {
+    for (int st = 0; st < DQ_STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, DQ_CONSUMERS);
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // Q, dO and the first tile fly while the CTA gathers its rel terms
+    mbar_expect_tx(bar_q, 2 * QR_BYTES);
+    tma_load(s_q, &tm_q, q0, bh, bar_q);
+    tma_load(s_do, &tm_do, q0, bh, bar_q);
+    load_kv(0);
+  }
+  // the CTA's rows of rel_h and of rel_w, two contiguous blocks: copied raw
+  // into stages 1-2, then rewritten as fp32 pairs (row r, row r + 8) of the
+  // rows a consumer thread holds, pre-scaled by log2(e); 0 past L
+  {
+    const int rows = min(DQ_ROWS, L - q0);
+    bf16* raw_h = reinterpret_cast<bf16*>(smem + DQ_OFF_ST + DQ_STAGE_BYTES);
+    bf16* raw_w = raw_h + ((rows * kh + 8 + 7) & ~7);
+    const int dh = relpos::copy_block(
+        raw_h, rel_h + ((size_t)bh * L + q0) * kh, rows * kh, tid, DQ_THREADS);
+    const int dw = relpos::copy_block(
+        raw_w, rel_w + ((size_t)bh * L + q0) * kw, rows * kw, tid, DQ_THREADS);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const int pi = tid / 6;  // 64 row pairs, 6 threads each
+    const int r0 = (pi >> 3) * 16 + (pi & 7);  // (warpgroup, warp, g)
+    const bool v0 = r0 < rows;
+    const bool v1 = r0 + 8 < rows;
+    for (int c = tid - 6 * pi; c < kh + kw; c += 6) {
+      const bf16* src = c < kh ? raw_h + dh + c : raw_w + dw + c - kh;
+      const int ld = c < kh ? kh : kw;
+      const float x0 = v0 ? __bfloat162float(src[r0 * ld]) : 0.f;
+      const float x1 = v1 ? __bfloat162float(src[(r0 + 8) * ld]) : 0.f;
+      rel[pi * rs + c] = make_float2(x0 * LOG2E, x1 * LOG2E);
+    }
+    for (int i = tid; i < (DQ_ROWS / 2) * kh; i += DQ_THREADS)
+      gh_sum[i] = make_float2(0.f, 0.f);
+    if (tid < E_ROWS) {  // E, one row a thread
+      const int rm = tid % kw;
+      const int rq = tid / kw;
+      uint32_t* row = reinterpret_cast<uint32_t*>(Es + tid * LDE);
+#pragma unroll
+      for (int w = 0; w < LDE / 2; ++w) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 2 * w + h;
+          const bool one = c < 40 ? rm == c : c < E_COLS && rq == c - 40;
+          word |= one ? ONE << (16 * h) : 0u;
+        }
+        row[w] = word;
+      }
+    }
+    // the staging is read: TMA (the async proxy) may refill stages 1-2
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 256) {
+      for (int t = 1; t < nt; ++t) {
+        mbar_wait(bar_empty + 8 * (t % DQ_STAGES),
+                  ((t / DQ_STAGES) & 1) ^ 1);
+        load_kv(t);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const int pair = wg * 32 + warp * 8 + g;
+    const float2* rrow = rel + pair * rs;
+    float2* ghrow = gh_sum + pair * kh;
+    const int ga = q0 + wg * 64 + warp * 16 + g;  // the thread's rows ga, +8
+    const bool va = ga < L;
+    const bool vb = ga + 8 < L;
+    // padded rows read no lse / delta: their dS is forced to 0
+    const float lse_a = va ? lse[(size_t)bh * L + ga] * LOG2E : 0.f;
+    const float lse_b = vb ? lse[(size_t)bh * L + ga + 8] * LOG2E : 0.f;
+    const float dl_a = va ? delta[(size_t)bh * L + ga] : 0.f;
+    const float dl_b = vb ? delta[(size_t)bh * L + ga + 8] : 0.f;
+    const float sc = scale * LOG2E;
+    const float inv_kw = 1.f / (float)kw;
+    const uint64_t dQ = desc_sw128(s_q + wg * 64 * 128, 16, 1024);
+    const uint64_t dO = desc_sw128(s_do + wg * 64 * 128, 16, 1024);
+    const uint32_t tE = smem_u32(Es);
+
+    float dqa[32], s[32], dp[32];
+    float gw[NW][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] = s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gw[n][i] = 0.f;
+    uint32_t ds[4][4];
+
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % DQ_STAGES;
+      mbar_wait(bar_full + 8 * st, (t / DQ_STAGES) & 1);
+      const uint32_t s_k = s_st + st * DQ_STAGE_BYTES;
+      const uint64_t dK = desc_sw128(s_k, 16, 1024);
+      const uint64_t dV = desc_sw128(s_k + KVT_BYTES, 16, 1024);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(s, dQ + 2 * kk, dK + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(dp, dO + 2 * kk, dV + 2 * kk, kk);
+      wgmma_commit();
+
+      // the bias of the thread's columns 8j + 2tq + e, gathered while S
+      // and dP run; a key's grid row is (key + 0.5) / kw in fp32 (exact
+      // below 2^22 keys); -inf past L
+      const int k0 = t * BT;
+      float2 bias[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * tq + e;
+          const int kr = (int)(((float)key + 0.5f) * inv_kw);
+          float2 x = make_float2(-INFINITY, -INFINITY);
+          if (key < L) {
+            const float2 h = rrow[kr];
+            const float2 w = rrow[kh + key - kr * kw];
+            x = make_float2(h.x + w.x, h.y + w.y);
+          }
+          bias[j][e] = x;
+        }
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // dS on the fragments, to bf16: the accumulator layout is the
+      // A-fragment layout of both the wgmma and the mma.sync products
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ia = 4 * j + e, ib = 4 * j + 2 + e;
+          const float pa = exp2f(fmaf(s[ia], sc, bias[j][e].x) - lse_a);
+          const float pb = exp2f(fmaf(s[ib], sc, bias[j][e].y) - lse_b);
+          s[ia] = va ? pa * (dp[ia] - dl_a) : 0.f;
+          s[ib] = vb ? pb * (dp[ib] - dl_b) : 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          ds[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // dq += dS . K (B MN-major: 16 keys a step)
+      fence_regs(dqa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs(dqa, ds[kk], dK + (uint64_t)(kk * 16 * 128 >> 4));
+      wgmma_commit();
+
+      // d rel_w += dS . E_w and this tile's d rel_h = dS . E_h, on this
+      // warp's 16 rows
+      const int m = k0 % kw;
+      float gh[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 3; ++np) {
+          uint32_t b[4];
+          ldsm_x4_t(b, e_addr(tE, m + kk * 16, np * 16, lane));
+          mma16816(gw[2 * np], ds[kk], b[0], b[1]);
+          if (np < 2)
+            mma16816(gw[2 * np + 1], ds[kk], b[2], b[3]);
+          else
+            mma16816(gh, ds[kk], b[2], b[3]);
+        }
+      }
+      wgmma_wait0();
+      fence_regs(dqa);
+      fence_u32(ds);
+      mbar_arrive(bar_empty + 8 * st);
+      __syncwarp();  // a bin may have been another lane's in the last tile
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int bin = k0 / kw + 2 * tq + e;
+        if (bin < kh) {
+          float2 cur = ghrow[bin];
+          cur.x += gh[e];
+          cur.y += gh[2 + e];
+          ghrow[bin] = cur;
+        }
+      }
+    }
+
+    bf16* dqb = dq + (size_t)bh * L * D;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      if (va)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)ga * D + c) =
+            __floats2bfloat162_rn(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+      if (vb)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)(ga + 8) * D + c) =
+            __floats2bfloat162_rn(dqa[4 * j + 2] * scale,
+                                  dqa[4 * j + 3] * scale);
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = w * 8 + 2 * tq + e;
+        if (col < kw) {
+          if (va)
+            drel_w[((size_t)bh * L + ga) * kw + col] =
+                __float2bfloat16(gw[w][e]);
+          if (vb)
+            drel_w[((size_t)bh * L + ga + 8) * kw + col] =
+                __float2bfloat16(gw[w][2 + e]);
+        }
+      }
+    }
+    __syncwarp();  // the warp's d rel_h sums were added by all its lanes
+    const int row0 = q0 + wg * 64 + warp * 16;
+    for (int i = lane; i < 16 * kh; i += 32) {
+      const int rr = i / kh;
+      const int bin = i - rr * kh;
+      const float2 x = gh_sum[(wg * 32 + warp * 8 + (rr & 7)) * kh + bin];
+      if (row0 + rr < L)
+        drel_h[((size_t)bh * L + row0 + rr) * kh + bin] =
+            __float2bfloat16(rr < 8 ? x.x : x.y);
+    }
+  }
+}
+
+// (b) dk and dv on wgmma: one CTA per (128 keys, bh) of three warpgroups.
+// Warpgroup 2 produces: K and V of the CTA's keys once by TMA, then per
+// query tile of 64 a stage holding Q and dO (TMA, 128-byte swizzle) and the
+// tile rows' rel_h, rel_w (bf16), lse and delta (fp32), contiguous blocks
+// copied raw by the first warp's cp.async. Each consumer warpgroup owns 64
+// keys, two per thread (the accumulator rows r, r + 8):
+//   S^T = K . Q^T, dP^T = V . dO^T   wgmma m64n64k16, A and B K-major from
+//                                    swizzled shared memory;
+//   P^T, dS^T on the accumulator fragments, to bf16 in registers;
+//   dv += P^T . dO, dk += dS^T . Q    wgmma m64n64k16, A from registers, B
+//                                    (dO, Q: MN-major) from the same tiles.
+constexpr int KV_KEYS = 128;                  // keys per CTA
+constexpr int KV_THREADS = 384;
+constexpr int KV_CONSUMERS = 256;
+constexpr int KV_STAGES = 3;
+constexpr int QT_BYTES = BT * 128;            // a Q or dO tile, 8 KiB
+constexpr int KT_BYTES = KV_KEYS * 128;       // K or V of the CTA, 16 KiB
+// full barrier arrivals: the TMA launch, and each producer lane once for
+// its cp.async copies and once for its plain tail stores
+constexpr int KV_FULL_ARRIVALS = 1 + 2 * 32;
+
+// a stage: [Q | dO | rel_h | rel_w | lse | delta], 1024-byte multiple
+__host__ __device__ constexpr int kv_stage_bytes(int kh, int kw) {
+  return (2 * QT_BYTES + relpos::block_room<bf16>(BT * kh) * 2 +
+          relpos::block_room<bf16>(BT * kw) * 2 +
+          2 * relpos::block_room<float>(BT) * 4 + 1023) / 1024 * 1024;
+}
+
+// [alignment slack | K | V | barriers | stages]
+size_t dkv_smem_bytes(int kh, int kw) {
+  return 1024 + 2 * KT_BYTES + 1024 + KV_STAGES * (size_t)kv_stage_bytes(kh, kw);
+}
+
+struct QueryStage {
+  unsigned char* base;
+  bf16 *rh, *rw;
+  float *lse, *delta;
+
+  __device__ QueryStage(unsigned char* p, int kh, int kw) : base(p) {
+    rh = reinterpret_cast<bf16*>(p + 2 * QT_BYTES);
+    rw = rh + relpos::block_room<bf16>(BT * kh);
+    lse = reinterpret_cast<float*>(rw + relpos::block_room<bf16>(BT * kw));
+    delta = lse + relpos::block_room<float>(BT);
+  }
+};
+
+// the element offset copy_block gives src inside its destination
+template <typename T>
+__device__ __forceinline__ int block_offset(const T* src) {
+  return (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+}
+
+__global__ void __launch_bounds__(KV_THREADS, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v,
+           const __grid_constant__ CUtensorMap tm_do,
+           const bf16* __restrict__ rel_h, const bf16* __restrict__ rel_w,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int kh,
+           int kw, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_k = smem_u32(smem);
+  const uint32_t s_v = s_k + KT_BYTES;
+  const uint32_t bar_full = s_v + KT_BYTES;            // KV_STAGES x 8
+  const uint32_t bar_empty = bar_full + 8 * KV_STAGES;  // KV_STAGES x 8
+  const uint32_t bar_kv = bar_empty + 8 * KV_STAGES;
+  unsigned char* stages = smem + 2 * KT_BYTES + 1024;
+  const int stage_bytes = kv_stage_bytes(kh, kw);
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * KV_KEYS;
+  const int tid = threadIdx.x;
+  const int nt = (L + BT - 1) / BT;
+
+  if (tid == 256) {
+    for (int st = 0; st < KV_STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, KV_FULL_ARRIVALS);
+      mbar_init(bar_empty + 8 * st, KV_CONSUMERS);
+    }
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_kv, 2 * KT_BYTES);
+    tma_load(s_k, &tm_k, k0, bh, bar_kv);
+    tma_load(s_v, &tm_v, k0, bh, bar_kv);
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid < 256 + 32) {  // the first producer warp fills the ring
+      const int lane = tid & 31;
+      for (int t = 0; t < nt; ++t) {
+        const int st = t % KV_STAGES;
+        const uint32_t full = bar_full + 8 * st;
+        mbar_wait(bar_empty + 8 * st, ((t / KV_STAGES) & 1) ^ 1);
+        const QueryStage sg(stages + st * stage_bytes, kh, kw);
+        const int q0 = t * BT;
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * QT_BYTES);
+          tma_load(smem_u32(sg.base), &tm_q, q0, bh, full);
+          tma_load(smem_u32(sg.base) + QT_BYTES, &tm_do, q0, bh, full);
+        }
+        const size_t row = (size_t)bh * L + q0;
+        const int rows = min(BT, L - q0);
+        relpos::copy_block(sg.rh, rel_h + row * kh, rows * kh, lane, 32);
+        relpos::copy_block(sg.rw, rel_w + row * kw, rows * kw, lane, 32);
+        relpos::copy_block(sg.lse, lse + row, rows, lane, 32);
+        relpos::copy_block(sg.delta, delta + row, rows, lane, 32);
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                     ::"r"(full) : "memory");
+        mbar_arrive(full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    // the thread's keys ka, ka + 8: grid row and column
+    const int ka = k0 + wg * 64 + warp * 16 + g;
+    const bool va = ka < L;
+    const bool vb = ka + 8 < L;
+    const int ha = va ? ka / kw : 0;
+    const int ca = va ? ka % kw : 0;
+    const int hb = vb ? (ka + 8) / kw : 0;
+    const int cb = vb ? (ka + 8) % kw : 0;
+    const uint64_t dK = desc_sw128(s_k + wg * 64 * 128, 16, 1024);
+    const uint64_t dV = desc_sw128(s_v + wg * 64 * 128, 16, 1024);
+
+    float dka[32], dva[32], s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = s[i] = dp[i] = 0.f;
+    uint32_t pf[4][4], df[4][4];
+
+    mbar_wait(bar_kv, 0);
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % KV_STAGES;
+      mbar_wait(bar_full + 8 * st, (t / KV_STAGES) & 1);
+      const QueryStage sg(stages + st * stage_bytes, kh, kw);
+      const uint32_t s_q = smem_u32(sg.base);
+      const uint32_t s_do = s_q + QT_BYTES;
+      const uint64_t dQ = desc_sw128(s_q, 16, 1024);
+      const uint64_t dD = desc_sw128(s_do, 16, 1024);
+
+      // S^T = K . Q^T and dP^T = V . dO^T (64 keys x 64 queries)
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(s, dK + 2 * kk, dQ + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(dp, dV + 2 * kk, dD + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T and dS^T: column c = 8j + 2tq + e is a query; logits in
+      // natural units, then to the exp2 domain
+      const int q0 = t * BT;
+      const size_t row = (size_t)bh * L + q0;
+      const bf16* rh = sg.rh + block_offset(rel_h + row * kh);
+      const bf16* rw = sg.rw + block_offset(rel_w + row * kw);
+      const float* lq = sg.lse + block_offset(lse + row);
+      const float* dq = sg.delta + block_offset(delta + row);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * tq + e;
+          const bool qok = q0 + c < L;
+          const float l2 = qok ? lq[c] * LOG2E : 0.f;
+          const float dl = qok ? dq[c] : 0.f;
+          const float bias_a = __bfloat162float(rh[c * kh + ha]) +
+                               __bfloat162float(rw[c * kw + ca]);
+          const float bias_b = __bfloat162float(rh[c * kh + hb]) +
+                               __bfloat162float(rw[c * kw + cb]);
+          const int ia = 4 * j + e, ib = 4 * j + 2 + e;
+          const float pa =
+              exp2f(fmaf(fmaf(s[ia], scale, bias_a), LOG2E, -l2));
+          const float pb =
+              exp2f(fmaf(fmaf(s[ib], scale, bias_b), LOG2E, -l2));
+          s[ia] = qok && va ? pa : 0.f;
+          s[ib] = qok && vb ? pb : 0.f;
+          dp[ia] = s[ia] * (dp[ia] - dl);
+          dp[ib] = s[ib] * (dp[ib] - dl);
+        }
+      }
+      // the accumulator layout is the A-fragment layout of the next products
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          df[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+
+      // dv += P^T . dO and dk += dS^T . Q (B MN-major: 16 queries a step)
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs(dva, pf[kk], dD + (uint64_t)(kk * 16 * 128 >> 4));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs(dka, df[kk], dQ + (uint64_t)(kk * 16 * 128 >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_u32(pf);
+      fence_u32(df);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    bf16* dkb = dk + (size_t)bh * L * D;
+    bf16* dvb = dv + (size_t)bh * L * D;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      if (va) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)ka * D + c) =
+            __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)ka * D + c) =
+            __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+      }
+      if (vb) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)(ka + 8) * D + c) =
+            __floats2bfloat162_rn(dka[4 * j + 2] * scale,
+                                  dka[4 * j + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)(ka + 8) * D + c) =
+            __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+      }
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const void* rel_h,
+           const void* rel_w, const void* dout, const void* lse,
+           const void* delta, void* dq, void* dk, void* dv, void* drel_h,
+           void* drel_w, int bh, int L, int kh, int kw, float scale,
+           cudaStream_t st) {
+  // the one-hot expanders: d rel_w in NW n-tiles of 8 columns, and the
+  // grid rows of a 64-key tile in one n-tile of 8
+  if (kw > KW_MAX || (BT - 1) / kw + 2 > 8) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tq128, tk, tk128, tv, tv128, tdo, tdo128;
+  if (!make_map(&tq, q, bh, L, BT) || !make_map(&tq128, q, bh, L, 128) ||
+      !make_map(&tk, k, bh, L, BT) || !make_map(&tk128, k, bh, L, 128) ||
+      !make_map(&tv, v, bh, L, BT) || !make_map(&tv128, v, bh, L, 128) ||
+      !make_map(&tdo, dout, bh, L, BT) ||
+      !make_map(&tdo128, dout, bh, L, 128))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_a = dq_smem_bytes(kh, kw);
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err != cudaSuccess) return (int)err;
+  dq_kernel<<<dim3((L + DQ_ROWS - 1) / DQ_ROWS, bh), DQ_THREADS, smem_a,
+              st>>>(tq128, tk, tv, tdo128, static_cast<const bf16*>(rel_h),
+                    static_cast<const bf16*>(rel_w),
+                    static_cast<const float*>(lse),
+                    static_cast<const float*>(delta), static_cast<bf16*>(dq),
+                    static_cast<bf16*>(drel_h), static_cast<bf16*>(drel_w), L,
+                    kh, kw, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem_b = dkv_smem_bytes(kh, kw);
+  err = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<<<dim3((L + KV_KEYS - 1) / KV_KEYS, bh), KV_THREADS, smem_b,
+               st>>>(tq, tk128, tv128, tdo, static_cast<const bf16*>(rel_h),
+                     static_cast<const bf16*>(rel_w),
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                     static_cast<bf16*>(dv), L, kh, kw, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hop
 
 }  // namespace
 
@@ -567,9 +1118,9 @@ int flash_relpos_bwd_bf16(const void* q, const void* k, const void* v,
                           const void* delta, void* dq, void* dk, void* dv,
                           void* drel_h, void* drel_w, int bh, int L, int kh,
                           int kw, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, rel_h, rel_w, dout, lse, delta, dq,
-                               dk, dv, drel_h, drel_w, bh, L, kh, kw, scale,
-                               stream);
+  return hop::launch(q, k, v, rel_h, rel_w, dout, lse, delta, dq, dk, dv,
+                     drel_h, drel_w, bh, L, kh, kw, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 int flash_relpos_bwd_f32(const void* q, const void* k, const void* v,
@@ -578,8 +1129,9 @@ int flash_relpos_bwd_f32(const void* q, const void* k, const void* v,
                          void* dq, void* dk, void* dv, void* drel_h,
                          void* drel_w, int bh, int L, int kh, int kw,
                          float scale, void* stream) {
-  return launch<float>(q, k, v, rel_h, rel_w, dout, lse, delta, dq, dk, dv,
-                       drel_h, drel_w, bh, L, kh, kw, scale, stream);
+  return f32::launch(q, k, v, rel_h, rel_w, dout, lse, delta, dq, dk, dv,
+                     drel_h, drel_w, bh, L, kh, kw, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_relpos_bwd_error_string(int code) {

@@ -36,12 +36,18 @@ import torch
 from painter_tpu_torch.kernels import build
 
 HEAD_DIM = 64
-# the forward keeps the tile's rel terms in shared memory: 256 bytes per
-# (kh + kw) entry beside ~100 KB of tiles, under the 227 KB a block may use
-MAX_REL_ENTRIES = 400
-# the backward's dq kernel keeps the rel terms and their gradient sums:
-# 512 bytes per entry beside ~102 KiB of fp32 tiles
-BWD_MAX_REL_ENTRIES = 200
+# the bf16 forward keeps its 128 rows' rel terms in shared memory: 512
+# bytes per (kh + kw) entry beside ~129 KiB of Q and the K / V ring, under
+# the 227 KB a block may use
+MAX_REL_ENTRIES = 190
+# the bf16 backward's dq kernel keeps its 128 rows' rel terms and d rel_h
+# sums as fp32 pairs: 1 KiB per entry beside ~94 KiB of Q, dO, the K / V
+# ring and the expanders
+BWD_MAX_REL_ENTRIES = 110
+# the bf16 backward forms d rel_w from one-hot key -> column expanders of
+# at most 40 columns, and d rel_h from the <= 8 grid rows a 64-key tile
+# touches (kw >= 10)
+BWD_BF16_KW = (10, 40)
 _FWD_FUNCS = {torch.bfloat16: "flash_relpos_fwd_bf16",
               torch.float32: "flash_relpos_fwd_f32"}
 _BWD_FUNCS = {torch.bfloat16: "flash_relpos_bwd_bf16",
@@ -78,8 +84,8 @@ def flash_attention_relpos_bwd_reference(q, k, v, rel_h, rel_w, out, lse,
     dS = P * (dout . v^T - delta); dq = scale dS.k, dk = scale dS^T.q,
     dv = P^T.dout; d_rel_h / d_rel_w are the row sums of dS grouped by
     key-grid row / column. P and dS are cast to the input type before the
-    products that read them, as in the kernel. Returns
-    (dq, dk, dv, d_rel_h, d_rel_w) in q.dtype.
+    products and sums that read them, as in the kernel and the JAX kernel
+    (its ``ds_b``). Returns (dq, dk, dv, d_rel_h, d_rel_w) in q.dtype.
     """
     bh, lq, _ = q.shape
     k_h, k_w = k_size
@@ -96,12 +102,13 @@ def flash_attention_relpos_bwd_reference(q, k, v, rel_h, rel_w, out, lse,
     dsr = ds.to(dt).float()
     dq = torch.matmul(dsr, k.float()) * scale
     dk = torch.matmul(dsr.transpose(1, 2), q.float()) * scale
-    ds4 = ds.view(bh, lq, k_h, k_w)
+    ds4 = dsr.view(bh, lq, k_h, k_w)
     return (dq.to(dt), dk.to(dt), dv.to(dt), ds4.sum(-1).to(dt),
             ds4.sum(-2).to(dt))
 
 
-def _check(q, k, v, rel_h, rel_w, k_size, max_rel=MAX_REL_ENTRIES, **more):
+def _check(q, k, v, rel_h, rel_w, k_size, max_rel=MAX_REL_ENTRIES,
+           bf16_kw=None, **more):
     if q.dtype not in _FWD_FUNCS:
         raise TypeError(f"flash_relpos takes bf16 or fp32, got {q.dtype}")
     bh, lq, hd = q.shape
@@ -114,6 +121,10 @@ def _check(q, k, v, rel_h, rel_w, k_size, max_rel=MAX_REL_ENTRIES, **more):
     if k_h + k_w > max_rel:
         raise ValueError(f"key grid {k_size} exceeds the kernel's "
                          f"{max_rel} rel-term entries")
+    if bf16_kw and q.dtype == torch.bfloat16 and not (
+            bf16_kw[0] <= k_w <= bf16_kw[1]):
+        raise ValueError(f"key grid {k_size}: the bf16 kernel takes a grid "
+                         f"width in [{bf16_kw[0]}, {bf16_kw[1]}]")
     shapes = {"q": (q, (bh, lq, hd), q.dtype),
               "k": (k, (bh, lq, hd), q.dtype),
               "v": (v, (bh, lq, hd), q.dtype),
@@ -212,7 +223,7 @@ def flash_attention_relpos_bwd(q, k, v, rel_h, rel_w, out, lse, dout,
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_relpos has no kernel for {q.device}")
     _check(q, k, v, rel_h, rel_w, k_size, max_rel=BWD_MAX_REL_ENTRIES,
-           out=out, dout=dout, lse=lse)
+           bf16_kw=BWD_BF16_KW, out=out, dout=dout, lse=lse)
     bh, lq, _ = q.shape
     delta = (dout.float() * out.float()).sum(-1)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -1,7 +1,9 @@
 """PyTorch port: K1's plain version against the JAX kernel (Pallas
 interpret mode on the CPU, as tests/test_flash_relpos.py runs it) and
 against the JAX stock attention path. fp32, atol 1e-5 (the sums run in
-another order than the Pallas interpreter's)."""
+another order than the Pallas interpreter's); bf16 cases against the JAX
+kernel in bf16, and the bf16 rounding point the CUDA kernel copies (P
+rounded to bf16 before P.V) pinned exactly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,15 +32,17 @@ def _inputs(b, nh, grid, table, hd=16, seed=0):
     return q, k, v, rph, rpw
 
 
-def _port(q, k, v, rph, rpw, grid, fn=fr.flash_attention_relpos):
+def _port(q, k, v, rph, rpw, grid, fn=fr.flash_attention_relpos,
+          dtype=torch.float32):
     b, nh, length, hd = q.shape
-    rel_h, rel_w = t_att.rel_pos_bias(t(q), t(rph), t(rpw), grid, grid)
-    out, lse = fn(t(q).reshape(b * nh, length, hd),
-                  t(k).reshape(b * nh, length, hd),
-                  t(v).reshape(b * nh, length, hd),
+    q, k, v, rph, rpw = (t(a, dtype) for a in (q, k, v, rph, rpw))
+    rel_h, rel_w = t_att.rel_pos_bias(q, rph, rpw, grid, grid)
+    out, lse = fn(q.reshape(b * nh, length, hd),
+                  k.reshape(b * nh, length, hd),
+                  v.reshape(b * nh, length, hd),
                   rel_h.reshape(b * nh, length, grid[0]),
                   rel_w.reshape(b * nh, length, grid[1]), grid, hd ** -0.5)
-    return out.reshape(b, nh, length, hd).numpy(), lse.numpy()
+    return out.reshape(b, nh, length, hd).float().numpy(), lse.numpy()
 
 
 @pytest.mark.parametrize("block_q", [8, 24])  # divisible + ragged tail
@@ -61,6 +65,64 @@ def test_plain_matches_jax_kernel_other_grids(grid, table, block_q):
                   16 ** -0.5, block_q=block_q, exp2_impl="native")
     got, _ = _port(q, k, v, rph, rpw, grid)
     np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL)
+
+
+# bf16 against the JAX kernel in bf16, max abs error over max |JAX|: both
+# round activations to 8 mantissa bits (2^-9 relative) at other points --
+# JAX feeds its logit matmul q * scale * log2e and the rel terms * log2e
+# pre-rounded to bf16 and rounds unnormalized probabilities, the port
+# rounds the normalized P -- so they differ by what JAX's bf16 kernel
+# differs from its own fp32 run (6.7e-3 to 1.0e-2 measured on these
+# inputs); the port measured 5.7e-3 to 9.3e-3
+BF16_RTOL = 2e-2
+
+
+def _bf16_exact(a):
+    """numpy values that bf16 holds exactly, so both packages get the
+    same bf16 inputs."""
+    return t(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("grid,table,block_q", [
+    ((8, 4), (8, 4), 8),
+    ((7, 5), (7, 5), 8),     # kh != 2*kw, ragged L=35
+])
+def test_plain_bf16_matches_jax_kernel(grid, table, block_q):
+    q, k, v, rph, rpw = (_bf16_exact(a)
+                         for a in _inputs(1, 2, grid, table, seed=6))
+    ref = np.asarray(j_flash(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, rph, rpw)),
+        grid, grid, 16 ** -0.5, block_q=block_q, exp2_impl="native"),
+        np.float32)
+    got, _ = _port(q, k, v, rph, rpw, grid,
+                   fn=fr.flash_attention_relpos_reference,
+                   dtype=torch.bfloat16)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err <= BF16_RTOL, err
+
+
+@pytest.mark.parametrize("grid", [(8, 4), (7, 5)])
+def test_plain_bf16_rounds_p_before_pv(grid):
+    """The rounding point K1's bf16 kernel copies: P = softmax(S) in fp32,
+    rounded to bf16, then P.V summed in fp32 and rounded once. Exact on
+    the CPU; not rounding P gives another output."""
+    q, k, v, rph, rpw = _inputs(1, 2, grid, grid, seed=7)
+    length = grid[0] * grid[1]
+    tq, tk, tv = (t(a, torch.bfloat16).reshape(2, length, 16)
+                  for a in (q, k, v))
+    rel_h, rel_w = (x.reshape(2, length, -1) for x in t_att.rel_pos_bias(
+        tq.reshape(1, 2, length, 16), t(rph, torch.bfloat16),
+        t(rpw, torch.bfloat16), grid, grid))
+    out, _ = fr.flash_attention_relpos_reference(tq, tk, tv, rel_h, rel_w,
+                                                 grid, 0.25)
+    s = torch.matmul(tq.float() * 0.25, tk.float().transpose(1, 2))
+    s = (s.view(2, length, *grid) + rel_h.float()[..., :, None]
+         + rel_w.float()[..., None, :]).view(2, length, length)
+    p = torch.softmax(s, dim=-1)
+    rounded = torch.matmul(p.to(torch.bfloat16).float(), tv.float())
+    unrounded = torch.matmul(p, tv.float())
+    assert torch.equal(out, rounded.to(torch.bfloat16))
+    assert not torch.equal(out, unrounded.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("grid", [(8, 4), (7, 5)])

@@ -4,8 +4,11 @@ Its plain version against torch autograd of the plain forward, and the
 port's autograd Function (K1 forward, K2 backward, the rel-term einsum in
 autograd) against JAX: ``jax.grad`` of the Pallas kernel in interpret mode
 at one tiny shape, and of the JAX stock attention op on ragged grids and
-a grid with kh != 2 * kw. fp32 throughout; tolerance 1e-5 relative to each
-gradient's max abs (the sums run in another order than JAX's).
+a grid with kh != 2 * kw. fp32: tolerance 1e-5 relative to each
+gradient's max abs (the sums run in another order than JAX's). bf16: the
+Function against jax.grad of the Pallas kernel in bf16, and the rounding
+points the CUDA kernel copies (P and dS rounded to bf16 before dv, dq, dk
+and the rel-bias sums) pinned exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -84,6 +87,84 @@ def test_function_matches_jax_kernel_grad_interpret():
     got = torch.autograd.grad(out.reshape(1, 2, length, hd), leaves, t(g))
     for a, b in zip(got, ref):
         _close(a.numpy(), b)
+
+
+# bf16 gradients against jax.grad of the JAX kernel in bf16, max abs error
+# over max |JAX| per gradient: both round every activation to 8 mantissa
+# bits at other points (JAX pre-rounds q * scale * log2e and the rel terms,
+# the forward's unnormalized probabilities and the per-block outputs), and
+# the rel-table gradients pass through the rel-term einsum's backward in
+# bf16; measured 4.5e-3 to 2.4e-2 (dq) on these inputs
+BF16_GRAD_RTOL = 5e-2
+
+
+@pytest.mark.parametrize("grid,table", [((8, 4), (8, 4)), ((7, 5), (7, 5))])
+def test_function_bf16_matches_jax_kernel_grad_interpret(grid, table):
+    rng = np.random.RandomState(8)
+    hd = 16
+    length = grid[0] * grid[1]
+
+    def bf16_exact(*shape):
+        return t(rng.randn(*shape)).to(torch.bfloat16).float().numpy()
+
+    q, k, v, g = (bf16_exact(1, 2, length, hd) for _ in range(4))
+    rph = bf16_exact(2 * table[0] - 1, hd)
+    rpw = bf16_exact(2 * table[1] - 1, hd)
+
+    def j_loss(*a):
+        out = j_flash(*a, grid, grid, hd ** -0.5, block_q=8,
+                      exp2_impl="native")
+        return jnp.sum(out.astype(jnp.float32) * g)
+
+    ref = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, rph, rpw)))
+    leaves = [t(a, torch.bfloat16).requires_grad_()
+              for a in (q, k, v, rph, rpw)]
+    tq, tk, tv, trph, trpw = leaves
+    rel_h, rel_w = t_att.rel_pos_bias(tq, trph, trpw, grid, grid)
+    out, _ = fr.flash_attention_relpos_fn(
+        tq.reshape(2, length, hd), tk.reshape(2, length, hd),
+        tv.reshape(2, length, hd), rel_h.reshape(2, length, grid[0]),
+        rel_w.reshape(2, length, grid[1]), grid, hd ** -0.5)
+    got = torch.autograd.grad(
+        (out.reshape(1, 2, length, hd).float() * t(g)).sum(), leaves)
+    for a, b in zip(got, ref):
+        _close(a.float().numpy(), np.asarray(b, np.float32),
+               rtol=BF16_GRAD_RTOL)
+
+
+@pytest.mark.parametrize("grid", [(8, 4), (7, 5)])
+def test_plain_bwd_bf16_rounds_p_and_ds(grid):
+    """The rounding points K2's bf16 kernel copies, exact on the CPU: dv
+    from bf16 P; dq, dk and both rel-bias gradients from bf16 dS (the JAX
+    kernel's ds_b). Summing the unrounded dS gives other rel gradients."""
+    q, k, v, rel_h, rel_w, dout = (
+        x.to(torch.bfloat16) for x in _rel_inputs(2, grid, seed=9))
+    scale = 0.25
+    out, lse = fr.flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
+                                                   grid, scale)
+    dq, dk, dv, drh, drw = fr.flash_attention_relpos_bwd_reference(
+        q, k, v, rel_h, rel_w, out, lse, dout, grid, scale)
+    length = grid[0] * grid[1]
+    s = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
+    s = (s.view(2, length, *grid) + rel_h.float()[..., :, None]
+         + rel_w.float()[..., None, :]).view(2, length, length)
+    p = torch.exp(s - lse[..., None])
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dout.float(), v.float().transpose(1, 2)) - delta)
+    dsr = ds.to(torch.bfloat16).float()
+    bf = torch.bfloat16
+    assert torch.equal(dv, torch.matmul(p.to(bf).float().transpose(1, 2),
+                                        dout.float()).to(bf))
+    assert torch.equal(dq, (torch.matmul(dsr, k.float()) * scale).to(bf))
+    assert torch.equal(dk, (torch.matmul(dsr.transpose(1, 2), q.float())
+                            * scale).to(bf))
+    ds4 = dsr.view(2, length, *grid)
+    assert torch.equal(drh, ds4.sum(-1).to(bf))
+    assert torch.equal(drw, ds4.sum(-2).to(bf))
+    unrounded = ds.view(2, length, *grid)
+    assert not (torch.equal(drh, unrounded.sum(-1).to(bf))
+                and torch.equal(drw, unrounded.sum(-2).to(bf)))
 
 
 def _attention_grads_jax(x, wq, bq, wp, bp, rph, rpw, nh, grid, g):
@@ -193,6 +274,27 @@ def test_bwd_rel_entries_limit():
     with pytest.raises(ValueError, match="rel-term entries"):
         fr._check(kw["q"], kw["k"], kw["v"], kw["rel_h"], kw["rel_w"],
                   kw["k_size"], max_rel=80)
+
+
+@pytest.mark.parametrize("k_size,ok", [
+    ((56, 28), True), ((70, 35), True), ((14, 14), True),   # the paths
+    ((10, 10), True), ((2, 40), True),                      # the limits
+    ((14, 7), False), ((2, 42), False)])
+def test_bwd_bf16_grid_width_limit(k_size, ok):
+    """The bf16 backward's one-hot expanders take kw in [10, 40]; the fp32
+    kernel has no such limit."""
+    length = k_size[0] * k_size[1]
+    for dtype in (torch.bfloat16, torch.float32):
+        z = torch.zeros(1, length, 64, dtype=dtype)
+        args = (z, z, z, torch.zeros(1, length, k_size[0], dtype=dtype),
+                torch.zeros(1, length, k_size[1], dtype=dtype), k_size)
+        kwargs = dict(max_rel=fr.BWD_MAX_REL_ENTRIES, bf16_kw=fr.BWD_BF16_KW,
+                      out=z, dout=z, lse=torch.zeros(1, length))
+        if ok or dtype == torch.float32:
+            fr._check(*args, **kwargs)
+        else:
+            with pytest.raises(ValueError, match="grid width"):
+                fr._check(*args, **kwargs)
 
 
 def test_bwd_build_target_and_source_note():
