@@ -12,7 +12,8 @@ and int8 with the fused MLP kernel); and training Painter ViT-L 896x448
 (bf16 compute, fp32 params) with the fused decoder tail through
 ``painter_tpu_torch.train.train.main`` on a synthetic dataset, after
 full-model gradient checks of K1/K2 against plain attention and of K3/K4
-against the stock tail. Checks that each path went through its kernels.
+against the stock tail. Checks that each path went through its kernels,
+and that K2, K4 and K5 give the same bits on two runs of the same inputs.
 Prints its findings, then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and the last line is not printed. Needs a CUDA device; it
@@ -340,8 +341,13 @@ def tail_case(shape, dtype, approx, seed, iters):
     out = dh.fused_decoder_tail(pix, *params, approx)
     ref = dh.fused_decoder_tail_reference(pix, *params, approx)
     got_g = dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx)
+    again = dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx)
     ref_g = dh.fused_decoder_tail_bwd_reference(pix, *params[:5], go, approx)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, x) for a, x in zip(got_g, again)),
+          f"K4 {dtype} {shape} approx={approx}: two runs on the same inputs "
+          f"differ")
+    del again
 
     def rel(a, r):
         return ((a.float() - r.float()).abs().max()
@@ -422,7 +428,9 @@ def phase_tail(label):
                           f"{'tanh' if approx else 'erf'}: err/max|plain| "
                           f"{x['rel_err']:.2e}"
                           + (f" ({k4e})" if name == "K4" else "")
-                          + f" kernel_ms {x['ms']:.4f} plain_ms "
+                          + (" (two runs bitwise equal)"
+                             if name == "K4" else "")
+                          + f" kernel_ms {x['ms']:.4f} ({_rate(x)}) plain_ms "
                           f"{x['plain_ms']:.4f} library_ms(stock tail "
                           f"{'fwd' if name == 'K3' else 'bwd'}) "
                           f"{x['library_ms']:.4f}"
@@ -467,9 +475,13 @@ def k5_case(m, seed, iters):
     args = (x, fc1.weight.q, fc1.weight.scale, fc1.bias, fc2.weight.q,
             fc2.weight.scale, fc2.bias)
     out = k5.int8_mlp(*args)
+    again = k5.int8_mlp(*args)
     ref = k5.int8_mlp_reference(*args)
     torch.cuda.synchronize()
     check(torch.isfinite(out).all().item(), f"K5 non-finite at M={m}")
+    check(torch.equal(out, again),
+          f"K5 M={m}: two runs on the same inputs differ")
+    del again
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     rel = err / ref.float().abs().max().item()
@@ -477,7 +489,20 @@ def k5_case(m, seed, iters):
     ops = 4 * m * d * n
     nbytes = 2 * m * d * x.element_size() + 2 * d * n + 4 * 2 * (d + n)
     t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    # a yardstick of another function: the same MLP in bf16 (dequantized
+    # weights), two F.linear calls around the tanh GELU; never called by
+    # the port
+    wb = [(lin.weight.q.float() * lin.weight.scale[:, None]).to(x.dtype)
+          for lin in (fc1, fc2)]
+    bb = [lin.bias.to(x.dtype) for lin in (fc1, fc2)]
+    lin = torch.nn.functional.linear
+
+    def bf16_mlp():
+        return lin(torch.nn.functional.gelu(lin(x, wb[0], bb[0]),
+                                            approximate="tanh"), wb[1], bb[1])
+
     return {"m": m, "max_abs_err": err, "rel_err": rel,
+            "bf16_linear_ms": cuda_ms(bf16_mlp, iters),
             "frac_differ": (diff > 0).float().mean().item(),
             "ms": cuda_ms(lambda: k5.int8_mlp(*args), iters),
             "plain_ms": cuda_ms(lambda: k5.int8_mlp_reference(*args),
@@ -496,9 +521,13 @@ def phase_k5(label):
         rows.append(r)
         print(f"# K5 bf16 M={m} (1024->4096->1024): err/max|plain| "
               f"{r['rel_err']:.2e} (values that differ "
-              f"{r['frac_differ']:.2e}) kernel_ms {r['ms']:.4f} plain_ms "
+              f"{r['frac_differ']:.2e}; two runs bitwise equal) kernel_ms "
+              f"{r['ms']:.4f} ({r['flop'] / r['ms'] / 1e9:.1f} TOP/s, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound) plain_ms "
               f"{r['plain_ms']:.4f} library_ms(unfused int8 MLP, "
-              f"torch._int_mm) {r['library_ms']:.4f} bound_ms "
+              f"torch._int_mm) {r['library_ms']:.4f} bf16_linear_ms(two "
+              f"bf16 F.linear, not the same function) "
+              f"{r['bf16_linear_ms']:.4f} bound_ms "
               f"{r['bound_ms']:.4f} ({r['flop']:.4e} int8 ops at 1979 "
               f"TOP/s, {r['bound_by']}) [{label}]")
     return rows

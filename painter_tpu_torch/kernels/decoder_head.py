@@ -222,17 +222,17 @@ fused_decoder_tail.launches = 0
 @functools.cache
 def _partials_fn():
     fn = build.library("decoder_tail_bwd").decoder_tail_bwd_partials
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     return fn
 
 
-def _bwd_partial_shapes(b: int, h: int, w: int):
-    """K4's fp32 partial buffers at (b, h, w), as its source sizes them:
-    ((sets, 9 C C) for dW1, (rows, 6 C + 3) for db1, dLN scale, dLN bias,
-    dW2 (C, 3) and db2)."""
+def _bwd_partial_shapes(b: int, h: int, w: int, dtype: torch.dtype):
+    """K4's fp32 partial buffers at (b, h, w) for ``dtype``, as its source
+    sizes them: ((sets, 9 C C) for dW1, (rows, 6 C + 3) for db1, dLN scale,
+    dLN bias, dW2 (C, 3) and db2)."""
     shape = (ctypes.c_int * 4)()
-    _partials_fn()(b, h, w, shape)
+    _partials_fn()(b, h, w, int(dtype == torch.bfloat16), shape)
     return (shape[0], shape[1]), (shape[2], shape[3])
 
 
@@ -245,7 +245,9 @@ def fused_decoder_tail_bwd(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
     current stream or raises. K4 writes dpix whole and per-CTA fp32
     partials of the parameter gradients; one ``torch.sum`` over the
     partials finishes them, as the JAX package sums its per-block
-    partials in XLA.
+    partials in XLA. In bf16 K4 is three launches (du, dpix, dW1) that
+    pass ``du`` through a scratch tensor; they count as one call in
+    ``fused_decoder_tail_bwd.launches``.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_bwd_reference(
@@ -260,17 +262,20 @@ def fused_decoder_tail_bwd(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
     go = grad_out.to(pix.dtype).contiguous()
     w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
                                           conv2_w)
-    dw1_shape, small_shape = _bwd_partial_shapes(b, h, w)
+    dw1_shape, small_shape = _bwd_partial_shapes(b, h, w, pix.dtype)
     dpix = torch.empty_like(pix)
+    # bf16: du (rounded to bf16, as the contract rounds it) between launches
+    du = torch.empty_like(pix) if pix.dtype == torch.bfloat16 else None
     dw1_part = torch.empty(dw1_shape, dtype=torch.float32, device=pix.device)
     small_part = torch.empty(small_shape, dtype=torch.float32,
                              device=pix.device)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
     rc = _fn("decoder_tail_bwd", f"decoder_tail_bwd_{_DTYPES[pix.dtype]}",
-             10, 4)(pix.data_ptr(), go.data_ptr(), w1.data_ptr(),
+             11, 4)(pix.data_ptr(), go.data_ptr(), w1.data_ptr(),
                     b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
                     w2.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
-                    small_part.data_ptr(), b, h, w,
+                    small_part.data_ptr(),
+                    None if du is None else du.data_ptr(), b, h, w,
                     int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_bwd")
     fused_decoder_tail_bwd.launches += 1

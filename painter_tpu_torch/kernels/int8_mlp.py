@@ -4,10 +4,12 @@ A hand-written CUDA kernel, ``csrc/int8_mlp.cu``, replaces the TPU kernel
 of ``painter_tpu/kernels/int8_mlp.py`` (``_int8_mlp_2d``): per-row int8
 quantization of x, the int8 fc1 product, dequantization + bias, tanh
 GELU, per-row requantization from the fp32 hidden activation, the int8
-fc2 product, dequantization + bias, with the hidden activation kept on
-the SM. Its header states the contract, the bound on an H100 and what
-the design does about it. The TPU kernel's row-block choice
-(``default_block_m``) is a layout device and is not carried over.
+fc2 product, dequantization + bias; the fp32 hidden activation stays on
+the SM (its row maxima are exchanged across a thread-block cluster), and
+only its int8 codes pass to fc2 through a scratch tensor. Its header
+states the contract, the bound on an H100 and what the design does about
+it. The TPU kernel's row-block choice (``default_block_m``) is a layout
+device and is not carried over.
 
 :func:`int8_mlp` dispatches on the device: a CPU tensor runs
 :func:`int8_mlp_reference`, a CUDA tensor launches the kernel or raises;
@@ -25,9 +27,10 @@ import torch
 
 from painter_tpu_torch.kernels import build
 
-# the depth of one batch of loads in the kernel's k loop (8 chunks of 64;
-# a multiple of its 16-row weight tiles too)
-_K_STEP = 512
+# the hidden width the kernel is built for (a cluster of 8 CTAs of 512
+# hidden columns each) and the multiple of K its tiles take
+HIDDEN = 4096
+_K_STEP = 128
 
 
 def int8_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
@@ -77,7 +80,7 @@ def int8_mlp_reference(x, w1q, s1, b1, w2q, s2, b2):
 @functools.cache
 def _kernel_fn():
     fn = build.library("int8_mlp").int8_mlp_bf16
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -95,7 +98,9 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2):
     """Fused w8a8 MLP: x (..., K) -> (..., K) in x.dtype.
 
     A CPU tensor runs :func:`int8_mlp_reference`; a CUDA tensor launches
-    the kernel on the current stream (no synchronization) or raises.
+    the kernel on the current stream (no synchronization) or raises. The
+    kernel's three launches (quantize, fc1 on a cluster, fc2) count as one
+    call in ``int8_mlp.launches``.
     """
     if x.device.type == "cpu":
         return int8_mlp_reference(x, w1q, s1, b1, w2q, s2, b2)
@@ -110,9 +115,9 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2):
     if tuple(w1q.shape) != (n, k) or tuple(w2q.shape) != (k, n):
         raise ValueError(f"fc1 {tuple(w1q.shape)} / fc2 {tuple(w2q.shape)} "
                          f"do not make a ({k} -> N -> {k}) MLP")
-    if k % _K_STEP or n % _K_STEP:
-        raise ValueError(f"the kernel takes K, N multiples of {_K_STEP}, "
-                         f"got K={k}, N={n}")
+    if k % _K_STEP or n != HIDDEN:
+        raise ValueError(f"the kernel takes K a multiple of {_K_STEP} and "
+                         f"N = {HIDDEN}, got K={k}, N={n}")
     for name, w in (("fc1", w1q), ("fc2", w2q)):
         if w.dtype != torch.int8 or w.device != x.device:
             raise TypeError(f"{name} weights are {w.dtype} on {w.device}")
@@ -123,11 +128,17 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2):
             for v in (s1, b1, s2, b2)]
     w1c, w2c = w1q.contiguous(), w2q.contiguous()
     out = torch.empty_like(x2)
+    # scratch of the kernel's three launches: xq and its row scales, the
+    # int8 hidden codes and theirs
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    hq = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    rows = torch.empty((2, m), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel_fn()(
         x2.data_ptr(), w1c.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
         w2c.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-        out.data_ptr(), m, k, n, stream)
+        out.data_ptr(), xq.data_ptr(), rows[0].data_ptr(), hq.data_ptr(),
+        rows[1].data_ptr(), m, k, n, stream)
     if rc:
         raise RuntimeError(f"int8_mlp launch failed: "
                            f"{_error_string()(rc).decode()} ({rc})")

@@ -169,6 +169,97 @@ def test_gelu_grad_matches_autograd():
                                    rtol=1e-12, atol=1e-12)
 
 
+def _box(x4, b, y, x0, tile, flat=False):
+    """The (tile, C) TMA box of ``x4`` (B, H, W, C) at pixel (x0, y) of image
+    b, zero where it leaves the image: a 4-D (C, W, H, B) map. ``flat``
+    models a 3-D map over B*H rows instead, whose zero fill starts only at
+    the first or last image."""
+    bsz, h, w, c = x4.shape
+    out = x4.new_zeros(tile, c)
+    rows = x4.reshape(bsz * h, w, c) if flat else x4[b]
+    row = b * h + y if flat else y
+    lo, hi = max(x0, 0), min(x0 + tile, w)
+    if 0 <= row < rows.shape[0] and hi > lo:
+        out[lo - x0:hi - x0] = rows[row, lo:hi]
+    return out
+
+
+def _k4_split(pix, w1, b1, lns, lnb, w2, go, approx, tile, ctas, flat=False):
+    """K4's three launches in plain torch, fp32. Units of ``tile`` pixels of
+    one row; every tap is its own shifted box. (A) u per unit from nine
+    boxes of pix, the LayerNorm / GELU backward per pixel, du and the small
+    sums (partial rows per unit group, summed at the end); (B) dpix per
+    unit from nine boxes of du against the rotated kernel; (C) dW1 as
+    per-CTA split-K partials box^T . du, summed. Returns the seven
+    gradients in the plain version's layouts."""
+    bsz, h, w, c = pix.shape
+    taps = [(dy, dx) for dy in range(3) for dx in range(3)]
+    wk = w1.permute(2, 3, 1, 0).reshape(9, c, c)  # (tap, c, o)
+    w2k = w2.reshape(3, c).t()
+    units = [(b, y, x0) for b in range(bsz) for y in range(h)
+             for x0 in range(0, w, tile)]
+    du = torch.zeros_like(pix)
+    small = torch.zeros(2 * ctas, 6 * c + 3)
+    for i, (b, y, x0) in enumerate(units):
+        n = min(tile, w - x0)
+        u = sum(_box(pix, b, y + dy - 1, x0 + dx - 1, tile, flat) @ wk[3 * dy + dx]
+                for dy, dx in taps)[:n] + b1
+        mean = u.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(((u - mean) ** 2).mean(-1, keepdim=True)
+                           + dh.LN_EPS)
+        xhat = (u - mean) * rstd
+        nrm = xhat * lns + lnb
+        gk = go[b, y, x0:x0 + n]
+        dn = (gk @ w2k.t()) * dh.gelu_grad(nrm, approx)
+        dxhat = dn * lns
+        d = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                    - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+        du[b, y, x0:x0 + n] = d
+        g = dh._gelu(nrm, approx)
+        small[i % (2 * ctas)] += torch.cat([
+            d.sum(0), (dn * xhat).sum(0), dn.sum(0),
+            (g.t() @ gk).reshape(-1), gk.sum(0)])
+    dpix = torch.zeros_like(pix)
+    dw1 = torch.zeros(ctas, 9, c, c)
+    for i, (b, y, x0) in enumerate(units):
+        n = min(tile, w - x0)
+        dpix[b, y, x0:x0 + n] = sum(
+            _box(du, b, y - dy + 1, x0 - dx + 1, tile, flat)
+            @ wk[3 * dy + dx].t() for dy, dx in taps)[:n]
+        d = _box(du, b, y, x0, tile, flat)
+        for dy, dx in taps:
+            dw1[i % ctas, 3 * dy + dx] += _box(
+                pix, b, y + dy - 1, x0 + dx - 1, tile, flat).t() @ d
+    sm = small.sum(0)
+    return (dpix, dw1.sum(0).reshape(3, 3, c, c).permute(3, 2, 0, 1),
+            sm[:c], sm[c:2 * c], sm[2 * c:3 * c],
+            sm[3 * c:6 * c].reshape(c, 3).t().reshape(w2.shape), sm[6 * c:])
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_backward_unit_split_matches_plain_fp32(approx):
+    """K4's decomposition (per-unit du from shifted tap boxes, dpix from
+    the rotated kernel, dW1 from split-K partials) == the plain backward in
+    fp32 to 1e-5 x each gradient's max abs (sums in another order), on a
+    ragged shape (W = 19: the last 8-pixel unit holds 3) whose boxes cross
+    every image edge, in two images. With a 3-D map over B*H rows the
+    first image's bottom halo reads the second image's top row: that model
+    must differ, which pins the 4-D map."""
+    b, h, w, c = 2, 5, 19, 16
+    args = _port_args(_inputs(11, b, h, w, c), torch.float32)
+    pix, w1, b1, lns, lnb, w2, _ = args
+    go = t(np.random.RandomState(12).randn(b, h, w, 3).astype(np.float32))
+    ref = dh.fused_decoder_tail_bwd_reference(pix, w1, b1, lns, lnb, w2, go,
+                                              approx)
+    got = _k4_split(pix, w1, b1, lns, lnb, w2, go, approx, tile=8, ctas=3)
+    for name, a, r in zip(NAMES, got, ref):
+        assert a.shape == r.shape, name
+        _close_rel(a.numpy(), r.numpy(), 1e-5, name)
+    leak = _k4_split(pix, w1, b1, lns, lnb, w2, go, approx, tile=8, ctas=3,
+                     flat=True)
+    assert not torch.allclose(leak[0], ref[0], rtol=1e-3, atol=1e-3)
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A tensor that is neither on the CPU nor on a CUDA device gets no
     plain version: the wrappers raise."""

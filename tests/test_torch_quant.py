@@ -210,6 +210,53 @@ def test_int8_mlp_reference_matches_jax_kernel(m, zero_rows):
         assert np.abs(got[r] - want).max() < 0.05
 
 
+def _k5_split(x, w1q, s1, b1, w2q, s2, b2, slices):
+    """The kernel's decomposition in plain torch: fc1 and GELU per hidden
+    slice (one per cluster CTA), each slice's row maxima of |h| max-combined
+    across slices (the distributed-shared-memory exchange), each slice
+    requantized with the combined scale, and fc2 as int32 partial products
+    over the slices, summed, then dequantized. Returns (out, the combined
+    row maxima, hq)."""
+    k = x.shape[-1]
+    n = w1q.shape[0]
+    xq, row1 = k5.row_quant(x.reshape(-1, k).float())
+    cols = torch.arange(n).reshape(slices, n // slices)
+    hs = [k5.gelu_tanh_f32(k5.int8_matmul(xq, w1q[c]).float()
+                           * (row1 * s1[c].float()) + b1[c].float())
+          for c in cols]
+    amax = torch.stack([h.abs().amax(dim=-1, keepdim=True) for h in hs])
+    amax = amax.amax(dim=0)
+    inv = amax.new_tensor(127.0) / amax.clamp_min(1e-20)
+    hq = [torch.clamp(torch.round(h * inv), -127.0, 127.0).to(torch.int8)
+          for h in hs]
+    acc = sum(q.long() @ w2q[:, c].long().t() for q, c in zip(hq, cols))
+    out = acc.float() * (amax * (1.0 / 127.0) * s2.float()) + b2.float()
+    return out.to(x.dtype).reshape(x.shape), amax, torch.cat(hq, dim=-1)
+
+
+@pytest.mark.parametrize("slices", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_int8_mlp_cluster_split_is_bit_equal(slices, dtype):
+    """K5's split over a cluster (hidden slices, max-combined row maxima,
+    summed int32 fc2 partials) == ``int8_mlp_reference`` bit for bit, on a
+    ragged M with zero rows: maxima and int32 sums do not depend on the
+    order they are taken in, and every fp32 step is the same."""
+    fc1, fc2, x = _k5_inputs(37, seed=21, zero_rows=(0, 36))
+    l1, l2 = _port_linear(fc1), _port_linear(fc2)
+    args = (t(x).to(dtype), l1.weight.q, l1.weight.scale, l1.bias,
+            l2.weight.q, l2.weight.scale, l2.bias)
+    ref = k5.int8_mlp_reference(*args)
+    got, amax, hq = _k5_split(*args, slices)
+    assert torch.equal(got, ref)
+    xq, row1 = k5.row_quant(args[0].float())
+    h = k5.gelu_tanh_f32(k5.int8_matmul(xq, l1.weight.q).float()
+                         * (row1 * l1.weight.scale) + l1.bias)
+    hq_full, row2 = k5.row_quant(h)
+    assert torch.equal(amax * (1.0 / 127.0), row2)
+    assert torch.equal(hq, hq_full)
+
+
 def test_fused_dispatch_follows_the_gelu_flavour(monkeypatch):
     """"fused" runs K5 (its plain version on the CPU) only with the tanh
     GELU; the exact-GELU config takes the unfused path, as the JAX mlp
