@@ -13,11 +13,11 @@ and int8 with the fused MLP kernel); and training Painter ViT-L 896x448
 ``painter_tpu_torch.train.train.main`` on a synthetic dataset, after
 full-model gradient checks of K1/K2 against plain attention and of K3/K4
 against the stock tail. Checks that each path went through its kernels,
-and that K2, K4 and K5 give the same bits on two runs of the same inputs.
-Prints its findings, then a ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
-code is not 0 and the last line is not printed. Needs a CUDA device; it
-imports nothing of JAX.
+and that K2, K3, K4 and K5 give the same bits on two runs of the same
+inputs. Prints its findings, then a ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+exit code is not 0 and the last line is not printed. Needs a CUDA device;
+it imports nothing of JAX.
 """
 import json
 import statistics
@@ -27,6 +27,8 @@ import time
 
 import numpy as np
 import torch
+
+from painter_tpu_torch.utils.cuda_timing import device_ms, event_ms
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak, same sheet
@@ -78,21 +80,6 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters, warmup=1):
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def card_label():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -137,19 +124,19 @@ def k1_case(bh, grid, dtype, seed, iters):
     check(err <= K1_TOL[dtype] and lse_err <= 1e-3,
           f"K1 {dtype} {bh}x{grid}: max abs err {err} (tol "
           f"{K1_TOL[dtype]}), lse err {lse_err}")
-    ms = cuda_ms(lambda: fr.flash_attention_relpos(q, k, v, rel_h, rel_w,
+    ms = event_ms(lambda: fr.flash_attention_relpos(q, k, v, rel_h, rel_w,
                                                    grid, scale), iters)
-    plain_ms = cuda_ms(lambda: fr.flash_attention_relpos_reference(
+    plain_ms = event_ms(lambda: fr.flash_attention_relpos_reference(
         q, k, v, rel_h, rel_w, grid, scale), max(1, iters // 2))
     bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(
         bh, length, length)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale),
+    library_ms = event_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale),
                          iters)
     del bias
     # the card's own attention at head_dim 64 with no bias: not the same
     # function, a yardstick of the kernel's design only
-    nobias_ms = cuda_ms(lambda: sdpa(q, k, v, scale=scale), iters)
+    nobias_ms = event_ms(lambda: sdpa(q, k, v, scale=scale), iters)
     flops = 4 * bh * length * length * d
     es = q.element_size()
     nbytes = (4 * bh * length * d + bh * length * sum(grid)) * es \
@@ -232,8 +219,8 @@ def k2_case(bh, grid, dtype, seed, iters):
           f"K2 {dtype} {bh}x{grid}: max abs err / max |plain| per output "
           f"{rel_errs} (tol {K2_TOL[dtype]})")
     del got, ref
-    ms = cuda_ms(lambda: fr.flash_attention_relpos_bwd(*args), iters)
-    plain_ms = cuda_ms(lambda: fr.flash_attention_relpos_bwd_reference(*args),
+    ms = event_ms(lambda: fr.flash_attention_relpos_bwd(*args), iters)
+    plain_ms = event_ms(lambda: fr.flash_attention_relpos_bwd_reference(*args),
                        max(1, iters // 2))
     # the library's backward: SDPA with the materialized bias as a
     # grad-requiring attn_mask, its forward run once outside the timing
@@ -242,13 +229,13 @@ def k2_case(bh, grid, dtype, seed, iters):
         bh, length, length).detach().requires_grad_()
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(
         *leaves, attn_mask=bias, scale=scale)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
+    library_ms = event_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves + [bias], dout, retain_graph=True), iters)
     del sdpa_out, bias
     # SDPA's backward with no bias: not the same function, a yardstick only
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(
         *leaves, scale=scale)
-    nobias_ms = cuda_ms(lambda: torch.autograd.grad(
+    nobias_ms = event_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves, dout, retain_graph=True), iters)
     del sdpa_out, leaves
     flops = 10 * bh * length * length * d
@@ -339,15 +326,19 @@ def tail_case(shape, dtype, approx, seed, iters):
               rnd(3, c, 1, 1, scale=c ** -0.5), rnd(3, scale=0.1))
     go = rnd(b, h, w, 3).to(dtype)
     out = dh.fused_decoder_tail(pix, *params, approx)
+    out_again = dh.fused_decoder_tail(pix, *params, approx)
     ref = dh.fused_decoder_tail_reference(pix, *params, approx)
     got_g = dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx)
     again = dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx)
     ref_g = dh.fused_decoder_tail_bwd_reference(pix, *params[:5], go, approx)
     torch.cuda.synchronize()
+    check(torch.equal(out, out_again),
+          f"K3 {dtype} {shape} approx={approx}: two runs on the same inputs "
+          f"differ")
     check(all(torch.equal(a, x) for a, x in zip(got_g, again)),
           f"K4 {dtype} {shape} approx={approx}: two runs on the same inputs "
           f"differ")
-    del again
+    del again, out_again
 
     def rel(a, r):
         return ((a.float() - r.float()).abs().max()
@@ -395,9 +386,10 @@ def tail_case(shape, dtype, approx, seed, iters):
             "shape": list(shape), "dtype": str(dtype), "approx": approx,
             "max_abs_err": k3_abs if name == "K3" else k4_abs,
             "rel_err": k3_err if name == "K3" else max(k4_errs.values()),
-            "ms": cuda_ms(fn, iters), "plain_ms": cuda_ms(plain,
-                                                          max(1, iters // 2)),
-            "library_ms": cuda_ms(lib, iters), "flop": flops,
+            "ms": event_ms(fn, iters),
+            "device_ms": device_ms(fn, iters, dh.KERNEL_NAMES),
+            "plain_ms": event_ms(plain, max(1, iters // 2)),
+            "library_ms": event_ms(lib, iters), "flop": flops,
             "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         if name == "K4":
@@ -406,6 +398,10 @@ def tail_case(shape, dtype, approx, seed, iters):
     rows["K4"]["library_fwd_bwd_ms"] = rows["K3"]["library_ms"] + \
         rows["K4"]["library_ms"]
     return rows
+
+
+def _opt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def phase_tail(label):
@@ -428,9 +424,9 @@ def phase_tail(label):
                           f"{'tanh' if approx else 'erf'}: err/max|plain| "
                           f"{x['rel_err']:.2e}"
                           + (f" ({k4e})" if name == "K4" else "")
-                          + (" (two runs bitwise equal)"
-                             if name == "K4" else "")
-                          + f" kernel_ms {x['ms']:.4f} ({_rate(x)}) plain_ms "
+                          + " (two runs bitwise equal)"
+                          + f" kernel_ms {x['ms']:.4f} ({_rate(x)}) "
+                          f"device_ms {_opt(x['device_ms'])} plain_ms "
                           f"{x['plain_ms']:.4f} library_ms(stock tail "
                           f"{'fwd' if name == 'K3' else 'bwd'}) "
                           f"{x['library_ms']:.4f}"
@@ -502,13 +498,13 @@ def k5_case(m, seed, iters):
                                             approximate="tanh"), wb[1], bb[1])
 
     return {"m": m, "max_abs_err": err, "rel_err": rel,
-            "bf16_linear_ms": cuda_ms(bf16_mlp, iters),
+            "bf16_linear_ms": event_ms(bf16_mlp, iters),
             "frac_differ": (diff > 0).float().mean().item(),
-            "ms": cuda_ms(lambda: k5.int8_mlp(*args), iters),
-            "plain_ms": cuda_ms(lambda: k5.int8_mlp_reference(*args),
+            "ms": event_ms(lambda: k5.int8_mlp(*args), iters),
+            "plain_ms": event_ms(lambda: k5.int8_mlp_reference(*args),
                                 max(1, iters // 2)),
             # the unfused w8a8 MLP, two torch._int_mm products
-            "library_ms": cuda_ms(lambda: quant.mlp(x, fc1, fc2, True, "xla"),
+            "library_ms": event_ms(lambda: quant.mlp(x, fc1, fc2, True, "xla"),
                                   iters),
             "flop": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}

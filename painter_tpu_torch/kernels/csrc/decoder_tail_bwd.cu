@@ -27,35 +27,22 @@
 // ms at 3.35 TB/s).
 //
 // bf16 design: three sm_90a launches, each a warp-specialized implicit GEMM
-// on wgmma m64n64k16 (fp32 accumulate) fed by TMA. An output row of 64
-// pixels is one M = 64 tile, N = 64 channels, K = 9 taps x 64. The work is
-// cut into strips of R output rows (16 at the main shape) of one 64-pixel
-// column of one image, and one persistent CTA per SM walks strips. Every
-// map is 4-D over (C, W, H, B) with 128-byte swizzle: a box of 64 pixels x
-// 64 channels at (x0 + dx - 1, y + dy - 1) comes back with the SAME padding
-// already in it, since TMA zero-fills what lies outside the image, and B is
-// its own axis, so image b + 1's first row never lands in image b's bottom
-// halo. A shift by one pixel is a shift by one 128-byte row, which would
-// break the 128-byte swizzle phase of an A descriptor inside one box: each
-// dx is its own box instead (three L2-served loads of the same row), and
-// every descriptor starts on a 1024-byte boundary. (TMA's im2col mode would
-// load fewer bytes but packs the taps along the pixel axis; the per-dx box
-// keeps every operand a plain swizzled tile.) A ring stage holds one input
-// row's three boxes, loaded once per strip and read by the three output
-// rows that need it: (R + 2) x 3 boxes per R rows instead of 9 R.
-//   (A) du: W1 (72 KiB, (tap, c, o) rows) stays resident in shared memory;
-//       a producer warp fills a 6-stage ring; two consumer warpgroups take
-//       a strip's even and odd output rows. u = pix * W1 + b1 is 9 x 4
-//       wgmma with A K-major (pixels x c) and B the resident W1 read
-//       MN-major (c rows, o contiguous). The LayerNorm and GELU backward
-//       run on the accumulator fragments: a pixel's 64 channels lie in the
-//       four threads of one quad, so every channel mean is two shuffles, and
-//       one tanh (tanh.approx.f32, see gelu_and_grad) serves GELU and its
-//       derivative. du goes to global memory in
-//       bf16 (the rounding the contract names anyway); db1, the LN sums, dW2
-//       and db2 accumulate in registers across the CTA's strips and are
-//       reduced once at the end. du is computed once per pixel: no halo
-//       recompute.
+// on wgmma m64n64k16 (fp32 accumulate) fed by TMA over strips of R output
+// rows (16 at the main shape) x 64 pixels of one image, one persistent CTA
+// per SM; every map is 4-D over (C, W, H, B), whose zero fill is the SAME
+// padding, and a ring stage holds one input row's three dx boxes, loaded
+// once per strip. (A) and (B) are strip_kernel of decoder_tail_hopper.cuh
+// (the mainloop K3 runs too) with their own epilogues; (C) has its own
+// loop.
+//   (A) du: u = pix * W1 + b1 on the shared mainloop (B the resident W1
+//       read MN-major). The LayerNorm and GELU backward run on the
+//       accumulator fragments: a pixel's 64 channels lie in the four
+//       threads of one quad, so every channel mean is two shuffles, and one
+//       tanh (tanh.approx.f32, see gelu_and_grad) serves GELU and its
+//       derivative. du goes to global memory in bf16 (the rounding the
+//       contract names anyway); db1, the LN sums, dW2 and db2 accumulate in
+//       registers across the CTA's strips and are reduced once at the end.
+//       du is computed once per pixel: no halo recompute.
 //   (B) dpix: the same ring over du's rows, taps (dy, dx) at (x0 - dx + 1,
 //       y - dy + 1), against the same resident W1 now read K-major (c rows
 //       are N, o is K): the rotated kernel without a transposed copy.
@@ -68,19 +55,16 @@
 // No atomics and a static strip schedule: two runs give the same bits. The
 // three launches count as one call of the wrapper.
 //
-// The fp32 instantiation keeps the scalar route (one CTA per 14 x 14
-// output tile over a halo, FMAs from shared memory, weights through L1):
-// it exists for tight fp32 comparisons, not speed.
+// The fp32 route is scalar (one CTA per 14 x 14 output tile over a halo,
+// FMAs from shared memory, weights through L1): it exists for tight fp32
+// comparisons, not speed.
 //
 // The launchers allocate nothing and do not synchronize: the bf16 one takes
 // a (B, H, W, 64) bf16 scratch for du. They return cudaGetLastError() so
 // the caller can raise on a refused launch. decoder_tail_bwd_partials gives
 // the partial buffers' sizes, so the tiling is decided here alone.
 
-#include <algorithm>
-
-#include "decoder_tail_common.cuh"
-#include "hopper.cuh"
+#include "decoder_tail_hopper.cuh"
 
 namespace {
 
@@ -98,36 +82,27 @@ constexpr int TPC = 4;             // tiles per CTA (down the image)
 constexpr int PRM = 3 * C + 3 * C; // b1, ln scale, ln bias, W2 (C, 3)
 constexpr int SMALL = 6 * C + 3;   // db1, dln scale, dln bias, dW2, db2
 
-template <typename T>
-size_t smem_bytes() {
-  size_t bytes = (size_t)PH * PW * Tile<T>::LD * sizeof(T)
-      + (size_t)DH * DW * Tile<T>::LD * sizeof(T)
-      + (size_t)WARPS * 16 * LDE * sizeof(float)
-      + (size_t)DH * DH * 3 * sizeof(float)
-      + (size_t)PRM * sizeof(float);
-  if (Tile<T>::kSmemWeights)
-    bytes += (size_t)9 * C * Tile<T>::LDW * sizeof(T);
-  return bytes;
-}
+constexpr size_t SMEM_BYTES =
+    ((size_t)PH * PW * LD + (size_t)DH * DW * LD + (size_t)WARPS * 16 * LDE
+     + (size_t)DH * DH * 3 + PRM) * sizeof(float);
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
-                        const T* __restrict__ w1, const T* __restrict__ b1,
-                        const T* __restrict__ lns, const T* __restrict__ lnb,
-                        const T* __restrict__ w2, T* __restrict__ dpix,
+decoder_tail_bwd_kernel(const float* __restrict__ pix,
+                        const float* __restrict__ go,
+                        const float* __restrict__ w1,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ lns,
+                        const float* __restrict__ lnb,
+                        const float* __restrict__ w2, float* __restrict__ dpix,
                         float* __restrict__ dw1_part,
                         float* __restrict__ small_part, int H, int W,
                         int approx_i) {
-  constexpr int LD = Tile<T>::LD;
-  constexpr int LDW = Tile<T>::LDW;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Ps = reinterpret_cast<T*>(smem);           // PH*PW pixels
-  T* Ds = Ps + PH * PW * LD;                    // DH*DW du values
-  float* Es = reinterpret_cast<float*>(Ds + DH * DW * LD);
+  float* Ps = reinterpret_cast<float*>(smem);   // PH*PW pixels
+  float* Ds = Ps + PH * PW * LD;                // DH*DW du values
+  float* Es = Ds + DH * DW * LD;
   float* Gs = Es + WARPS * 16 * LDE;            // DH*DH*3 upstream grads
   float* Prm = Gs + DH * DH * 3;
-  T* Ws = reinterpret_cast<T*>(Prm + PRM);      // 9*C rows
   float* B1 = Prm;
   float* LNS = B1 + C;
   float* LNB = LNS + C;
@@ -141,18 +116,16 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
   const int x0 = blockIdx.x * TO;
   const size_t cta =
       ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  const T* img = pix + (size_t)b * H * W * C;
-  const T* gimg = go + (size_t)b * H * W * 3;
+  const float* img = pix + (size_t)b * H * W * C;
+  const float* gimg = go + (size_t)b * H * W * 3;
   float* dw1 = dw1_part + cta * 9 * C * C;  // (tap, c, o)
 
   for (int i = tid; i < C; i += THREADS) {
-    B1[i] = to_f32(b1[i]);
-    LNS[i] = to_f32(lns[i]);
-    LNB[i] = to_f32(lnb[i]);
+    B1[i] = b1[i];
+    LNS[i] = lns[i];
+    LNB[i] = lnb[i];
   }
-  for (int i = tid; i < 3 * C; i += THREADS) W2[i] = to_f32(w2[i]);
-  if (Tile<T>::kSmemWeights) load_weights(Ws, w1);
-  const T* Wp = Tile<T>::kSmemWeights ? Ws : w1;
+  for (int i = tid; i < 3 * C; i += THREADS) W2[i] = w2[i];
   float* Ew = Es + warp * 16 * LDE;
   const int c0 = 2 * lane;
 
@@ -170,12 +143,12 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
       const int p = i / 3;
       const int y = y0 - 1 + p / DH, x = x0 - 1 + p % DH;
       Gs[i] = (y >= 0 && y < H && x >= 0 && x < W)
-          ? to_f32(gimg[((size_t)y * W + x) * 3 + i % 3]) : 0.f;
+          ? gimg[((size_t)y * W + x) * 3 + i % 3] : 0.f;
     }
     for (int i = tid; i < DH * (DW - DH) * C; i += THREADS) {
       const int row = i / ((DW - DH) * C);
       const int rest = i % ((DW - DH) * C);
-      Ds[(row * DW + DH + rest / C) * LD + rest % C] = from_f32<T>(0.f);
+      Ds[(row * DW + DH + rest / C) * LD + rest % C] = 0.f;
     }
     __syncthreads();
 
@@ -185,27 +158,27 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
       const bool row_in = y >= 0 && y < H;
       const bool row_own = i >= 1 && i <= TO;
       if (row_in) {
-        Acc<T> acc[4];
+        Acc acc[4];
 #pragma unroll
         for (int n = 0; n < 4; ++n) zero(acc[n]);
         for (int tap = 0; tap < 9; ++tap) {
           const int dy = tap / 3, dx = tap % 3;
-          const T* a = Ps + ((i + dy) * PW + dx) * LD;
-          const T* wt = Wp + tap * C * LDW;
+          const float* a = Ps + ((i + dy) * PW + dx) * LD;
+          const float* wt = w1 + tap * C * C;
 #pragma unroll
           for (int cb = 0; cb < 4; ++cb)
-            mma16x64<wmma::row_major, wmma::row_major>(
-                acc, a + cb * 16, LD, wt + cb * 16 * LDW, LDW, 16, lane);
+            mma16x64<true, true>(acc, a + cb * 16, LD, wt + cb * 16 * C, C,
+                                 16, lane);
         }
 #pragma unroll
         for (int n = 0; n < 4; ++n) store(Ew + n * 16, LDE, acc[n], lane);
       }
       __syncwarp();
       for (int j = 0; j < DH; ++j) {
-        T* dst = Ds + (i * DW + j) * LD + c0;
+        float* dst = Ds + (i * DW + j) * LD + c0;
         const int x = x0 - 1 + j;
         if (!row_in || x < 0 || x >= W) {
-          store2(dst, 0.f, 0.f);
+          dst[0] = dst[1] = 0.f;
           continue;
         }
         float xh[2], dn[2], dxh[2], g[2];
@@ -233,7 +206,8 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
         const float mxx = warp_sum(dxh[0] * xh[0] + dxh[1] * xh[1]) / C;
         const float du0 = rstd * (dxh[0] - mx - xh[0] * mxx);
         const float du1 = rstd * (dxh[1] - mx - xh[1] * mxx);
-        store2(dst, du0, du1);
+        dst[0] = du0;
+        dst[1] = du1;
         if (row_own && j >= 1 && j <= TO) {
           p_db1[0] += du0;
           p_db1[1] += du1;
@@ -241,10 +215,9 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
           for (int h = 0; h < 2; ++h) {
             p_dlns[h] += dn[h] * xh[h];
             p_dlnb[h] += dn[h];
-            const float gr = round_to<T>(g[h]);
-            p_dw2[h][0] += gr * go0;
-            p_dw2[h][1] += gr * go1;
-            p_dw2[h][2] += gr * go2;
+            p_dw2[h][0] += g[h] * go0;
+            p_dw2[h][1] += g[h] * go1;
+            p_dw2[h][2] += g[h] * go2;
           }
           p_db2[0] += go0;
           p_db2[1] += go1;
@@ -260,17 +233,17 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
     for (int a = warp; a < TO; a += WARPS) {
       const int y = y0 + a;
       if (y >= H) break;
-      Acc<T> acc[4];
+      Acc acc[4];
 #pragma unroll
       for (int n = 0; n < 4; ++n) zero(acc[n]);
       for (int tap = 0; tap < 9; ++tap) {
         const int dy = tap / 3, dx = tap % 3;
-        const T* src = Ds + ((a + 2 - dy) * DW + (2 - dx)) * LD;
-        const T* wt = Wp + tap * C * LDW;
+        const float* src = Ds + ((a + 2 - dy) * DW + (2 - dx)) * LD;
+        const float* wt = w1 + tap * C * C;
 #pragma unroll
         for (int ob = 0; ob < 4; ++ob)
-          mma16x64<wmma::row_major, wmma::col_major>(
-              acc, src + ob * 16, LD, wt + ob * 16, LDW, 16 * LDW, lane);
+          mma16x64<true, false>(acc, src + ob * 16, LD, wt + ob * 16, C,
+                                16 * C, lane);
       }
 #pragma unroll
       for (int n = 0; n < 4; ++n) store(Ew + n * 16, LDE, acc[n], lane);
@@ -278,8 +251,9 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
       for (int j = 0; j < TO; ++j) {
         const int x = x0 + j;
         if (x >= W) break;
-        store2(dpix + ((size_t)(b * H + y) * W + x) * C + c0,
-               Ew[j * LDE + c0], Ew[j * LDE + c0 + 1]);
+        float* dst = dpix + ((size_t)(b * H + y) * W + x) * C + c0;
+        dst[0] = Ew[j * LDE + c0];
+        dst[1] = Ew[j * LDE + c0 + 1];
       }
       __syncwarp();
     }
@@ -290,23 +264,22 @@ decoder_tail_bwd_kernel(const T* __restrict__ pix, const T* __restrict__ go,
     for (int i = tid; i < DH * 2 * C; i += THREADS) {
       const int row = i / (2 * C);
       const int col = (i / C) % 2 ? DH - 1 : 0;
-      Ds[(row * DW + col) * LD + i % C] = from_f32<T>(0.f);
+      Ds[(row * DW + col) * LD + i % C] = 0.f;
     }
     __syncthreads();
     for (int pair = warp; pair < 9 * 4; pair += WARPS) {
       const int tap = pair / 4, cb = pair % 4;
       const int dy = tap / 3, dx = tap % 3;
       float* dst = dw1 + (tap * C + cb * 16) * C;
-      Acc<T> acc[4];
+      Acc acc[4];
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         if (t == 0) zero(acc[n]);
         else load(acc[n], dst + n * 16, C, lane);
       }
       for (int i = 1; i <= TO; ++i)
-        mma16x64<wmma::col_major, wmma::row_major>(
-            acc, Ps + ((i + dy) * PW + dx) * LD + cb * 16, LD,
-            Ds + i * DW * LD, LD, 16, lane);
+        mma16x64<false, true>(acc, Ps + ((i + dy) * PW + dx) * LD + cb * 16,
+                              LD, Ds + i * DW * LD, LD, 16, lane);
 #pragma unroll
       for (int n = 0; n < 4; ++n) store(dst + n * 16, C, acc[n], lane);
     }
@@ -332,23 +305,21 @@ dim3 grid_of(int B, int H, int W) {
   return dim3((W + TO - 1) / TO, (tiles_y + TPC - 1) / TPC, B);
 }
 
-template <typename T>
-int launch(const void* pix, const void* go, const void* w1, const void* b1,
-           const void* lns, const void* lnb, const void* w2, void* dpix,
-           void* dw1_part, void* small_part, int B, int H, int W, int approx,
-           void* stream) {
-  const size_t smem = smem_bytes<T>();
+int launch_f32(const void* pix, const void* go, const void* w1,
+               const void* b1, const void* lns, const void* lnb,
+               const void* w2, void* dpix, void* dw1_part, void* small_part,
+               int B, int H, int W, int approx, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_tail_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decoder_tail_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid = grid_of(B, H, W);
-  decoder_tail_bwd_kernel<T><<<grid, THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pix), static_cast<const T*>(go),
-      static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(lns), static_cast<const T*>(lnb),
-      static_cast<const T*>(w2), static_cast<T*>(dpix),
+  decoder_tail_bwd_kernel<<<grid, THREADS, SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pix), static_cast<const float*>(go),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(lns), static_cast<const float*>(lnb),
+      static_cast<const float*>(w2), static_cast<float*>(dpix),
       static_cast<float*>(dw1_part), static_cast<float*>(small_part), H, W,
       approx);
   return (int)cudaGetLastError();
@@ -357,31 +328,12 @@ int launch(const void* pix, const void* go, const void* w1, const void* b1,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// bf16: three wgmma + TMA launches
+// bf16: the du and dpix strip epilogues and the dW1 launch
 // ---------------------------------------------------------------------------
 
 namespace hop {
 
-using namespace hopper;
-typedef __nv_bfloat16 bf16;
-
-constexpr int C = dtail::C;
-constexpr int TILE = 64;                  // pixels per unit (one row segment)
-constexpr int BOX = TILE * C * 2;         // a (64 pixels, 64 channels) box
-constexpr int TAPS = 9;
 constexpr int SMALL = 6 * C + 3;          // db1, dln scale, dln bias, dW2, db2
-
-// (A) / (B): 2 consumer warpgroups + 1 producer warpgroup; a ring stage is
-// one input row: its three boxes at x0 - 1, x0, x0 + 1
-constexpr int ROW = 3 * BOX;
-constexpr int AB_THREADS = 384;
-constexpr int AB_CONSUMERS = 256;
-constexpr int AB_STAGES = 6;
-constexpr int AB_OFF_RING = TAPS * BOX;               // after the resident W1
-constexpr int AB_OFF_BAR = AB_OFF_RING + AB_STAGES * ROW;
-constexpr int AB_OFF_PRM = AB_OFF_BAR + 512;          // b1, lns, lnb, W2 fp32
-constexpr int AB_SMEM = 1024 + AB_OFF_PRM + 6 * C * 4;
-static_assert(AB_SMEM <= 232448, "du / dpix shared memory");
 
 // (C): 3 consumer warpgroups (one per dy) + 1 producer warpgroup; a stage is
 // one input row: du's box at x0, then pix's three boxes
@@ -393,33 +345,17 @@ constexpr int W_OFF_BAR = W_STAGES * W_STAGE;
 constexpr int W_SMEM = 1024 + W_OFF_BAR + 128;
 static_assert(W_SMEM <= 232448, "dW1 shared memory");
 
-// The work is cut into strips: R output rows (R even) of one 64-pixel
-// column of one image. A strip reads input rows y0 - 1 .. y0 + R, one ring
-// stage each (stage q holds row y0 - 1 + q), so every row's boxes are loaded
-// once per strip and serve the three output rows that read them.
-struct Strips {
-  int H, W, xt, ys, R, total;  // ys: strips down the image
-  __device__ void decode(int s, int& b, int& y0, int& x0) const {
-    const int col = s % xt;
-    const int rest = s / xt;
-    x0 = col * TILE;
-    b = rest / ys;
-    y0 = (rest - b * ys) * R;
-  }
-};
-
 // gelu(n) and its derivative (decoder_tail_common.cuh's expressions) from
-// one tanh or erf evaluation. The tanh flavour uses tanh.approx.f32
-// (relative error about 2^-11): both values only reach bf16 outputs through
-// du and the GELU output, which are rounded to bf16 (2^-9) first, and the
-// accurate tanhf was the largest part of the du launch's epilogue.
+// one tanh or erf evaluation. The tanh flavour uses tanh.approx.f32: both
+// values only reach bf16 outputs through du and the GELU output, which are
+// rounded to bf16 first, and the accurate tanhf was the largest part of the
+// du launch's epilogue.
 __device__ __forceinline__ void gelu_and_grad(float x, bool approx, float& g,
                                               float& dg) {
   if (approx) {
     const float c = 0.7978845608028654f;
     const float a = 0.044715f;
-    float th;
-    asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(c * (x + a * (x * x * x))));
+    const float th = tanh_approx(c * (x + a * (x * x * x)));
     g = 0.5f * x * (1.0f + th);
     dg = 0.5f * (1.0f + th)
         + 0.5f * x * (1.0f - th * th) * c * (1.0f + 3.0f * a * x * x);
@@ -430,14 +366,6 @@ __device__ __forceinline__ void gelu_and_grad(float x, bool approx, float& g,
   dg = cdf + x * (expf(-0.5f * x * x) * 0.3989422804014327f);
 }
 
-// quad (four threads of one accumulator row) sum: every lane of the quad
-// ends with the same bits
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
-
 // sum over the eight accumulator rows g of a warp (lanes 4g + tq)
 __device__ __forceinline__ float rows_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
@@ -446,270 +374,231 @@ __device__ __forceinline__ float rows_sum(float v) {
   return v;
 }
 
-// (A) du and the small partials (DPIX = false) or (B) dpix (DPIX = true).
-// Persistent: CTA i takes strips i, i + G, ...; in a strip, warpgroup w
-// takes the output rows j = w, w + 2, ... Output row j reads stages j, j + 1,
-// j + 2. A warpgroup releases stages j and j + 1 after its row j (its last
-// use of both), and j + 2 too after its last row; the stage the other
-// warpgroup alone reads (0 for warpgroup 1, R + 1 for warpgroup 0) it
-// releases unused, after waiting for it to be filled, so that no arrival
-// lands on an earlier round of a stage's barrier.
-template <bool DPIX>
-__global__ void __launch_bounds__(AB_THREADS, 1)
-conv_kernel(const __grid_constant__ CUtensorMap tm_in,
-            const __grid_constant__ CUtensorMap tm_w1,
-            const bf16* __restrict__ go, const bf16* __restrict__ b1,
-            const bf16* __restrict__ lns, const bf16* __restrict__ lnb,
-            const bf16* __restrict__ w2, bf16* __restrict__ out,
-            float* __restrict__ small_part, Strips sp, int approx_i) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const uint32_t s_w1 = smem_u32(smem);
-  const uint32_t s_ring = s_w1 + AB_OFF_RING;
-  const uint32_t bar_full = s_w1 + AB_OFF_BAR;
-  const uint32_t bar_empty = bar_full + 8 * AB_STAGES;
-  const uint32_t bar_w1 = bar_empty + 8 * AB_STAGES;
-  float* B1 = reinterpret_cast<float*>(smem + AB_OFF_PRM);
-  float* LNS = B1 + C;
-  float* LNB = LNS + C;
-  float* W2T = LNB + C;  // (3, C): W2 transposed, channel pairs adjacent
+// the du and dpix launches' kernel argument (the strip kernel's aux is go,
+// its out du (A) or dpix (B))
+struct BwdParams {
+  const bf16* b1;
+  const bf16* lns;
+  const bf16* lnb;
+  const bf16* w2;
+  float* small_part;   // (A): one row of SMALL per consumer warp
+  int approx;
+};
 
-  const int tid = threadIdx.x;
-  const int R = sp.R;
-  if (tid == AB_CONSUMERS) {
-    for (int s = 0; s < AB_STAGES; ++s) {
-      mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, AB_CONSUMERS);
-    }
-    mbar_init(bar_w1, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if (!DPIX) {
+// (A) du and the small partials
+struct DuEpi {
+  static constexpr bool kRotated = false;
+  static constexpr int kPrmBytes = 6 * C * 4;  // b1, lns, lnb, W2T fp32
+  typedef BwdParams Params;
+
+  static __device__ __forceinline__ void load(const Params& p,
+                                              unsigned char* prm, int tid) {
+    float* B1 = reinterpret_cast<float*>(prm);
+    float* LNS = B1 + C;
+    float* LNB = LNS + C;
+    float* W2T = LNB + C;
     for (int i = tid; i < C; i += AB_THREADS) {
-      B1[i] = __bfloat162float(b1[i]);
-      LNS[i] = __bfloat162float(lns[i]);
-      LNB[i] = __bfloat162float(lnb[i]);
+      B1[i] = __bfloat162float(p.b1[i]);
+      LNS[i] = __bfloat162float(p.lns[i]);
+      LNB[i] = __bfloat162float(p.lnb[i]);
     }
     for (int i = tid; i < 3 * C; i += AB_THREADS)
-      W2T[(i % 3) * C + i / 3] = __bfloat162float(w2[i]);
+      W2T[(i % 3) * C + i / 3] = __bfloat162float(p.w2[i]);
   }
-  __syncthreads();
 
-  const int wg = tid >> 7;
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (tid == AB_CONSUMERS) {
-      mbar_expect_tx(bar_w1, TAPS * BOX);
-      for (int t = 0; t < TAPS; ++t)
-        tma_load_2d(s_w1 + t * BOX, &tm_w1, 0, t * C, bar_w1);
-      int g = 0;
-      for (int st = blockIdx.x; st < sp.total; st += gridDim.x) {
-        int b, y0, x0;
-        sp.decode(st, b, y0, x0);
-        for (int q = 0; q < R + 2; ++q, ++g) {
-          const int s = g % AB_STAGES;
-          mbar_wait(bar_empty + 8 * s, ((g / AB_STAGES) & 1) ^ 1);
-          mbar_expect_tx(bar_full + 8 * s, ROW);
-          for (int d = 0; d < 3; ++d)
-            tma_load_4d(s_ring + s * ROW + d * BOX, &tm_in, 0, x0 - 1 + d,
-                        y0 - 1 + q, b, bar_full + 8 * s);
-        }
-      }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const bool approx = approx_i != 0;
-    const int warp = (tid & 127) >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int tq = lane & 3;
-    // this thread's partials of channels 8j + 2tq + e (A only)
-    float p_db1[16], p_dlns[16], p_dlnb[16], p_dw2[16][3], p_db2[3];
+  const float* B1;
+  const float* LNS;
+  const float* LNB;
+  const float* W2T;  // (3, C): W2 transposed, channel pairs adjacent
+  float* small_part;
+  bool approx;
+  int wg, warp, lane, g, tq;
+  // this thread's partials of channels 8j + 2tq + e
+  float p_db1[16], p_dlns[16], p_dlnb[16], p_dw2[16][3], p_db2[3];
+
+  __device__ __forceinline__ DuEpi(const Params& p, unsigned char* prm)
+      : B1(reinterpret_cast<const float*>(prm)), LNS(B1 + C), LNB(LNS + C),
+        W2T(LNB + C), small_part(p.small_part),
+        approx(p.approx != 0), wg(threadIdx.x >> 7),
+        warp((threadIdx.x & 127) >> 5), lane(threadIdx.x & 31),
+        g(lane >> 2), tq(lane & 3) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       p_db1[i] = p_dlns[i] = p_dlnb[i] = 0.f;
       p_dw2[i][0] = p_dw2[i][1] = p_dw2[i][2] = 0.f;
     }
     p_db2[0] = p_db2[1] = p_db2[2] = 0.f;
-    float acc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  }
 
-    // wait for stage q of the strip at ring index gb to be filled, release it
-    auto release = [&](int gq) {
-      mbar_wait(bar_full + 8 * (gq % AB_STAGES), (gq / AB_STAGES) & 1);
-      mbar_arrive(bar_empty + 8 * (gq % AB_STAGES));
-    };
+  __device__ __forceinline__ void row(const float (&acc)[32], int b, int y,
+                                      int x0, const Strips& sp,
+                                      const bf16* __restrict__ go,
+                                      bf16* __restrict__ out) {
+    if (approx) row_as<true>(acc, b, y, x0, sp, go, out);
+    else row_as<false>(acc, b, y, x0, sp, go, out);
+  }
 
-    mbar_wait(bar_w1, 0);
-    int gb = 0;
-    for (int st = blockIdx.x; st < sp.total; st += gridDim.x, gb += R + 2) {
-      int b, y0, x0;
-      sp.decode(st, b, y0, x0);
-      if (wg == 1) release(gb);
-      for (int r = wg; r < R; r += 2) {
-        fence_regs(acc);
-#pragma unroll 1
-        for (int t = 0; t < TAPS; ++t) {
-          // u: pix row y + dy - 1, box x + dx - 1; dpix: du row y - dy + 1,
-          // box x - dx + 1
-          const int dyi = t / 3, dxi = t % 3;
-          const int gq = gb + r + (DPIX ? 2 - dyi : dyi);
-          const int s = gq % AB_STAGES;
-          mbar_wait(bar_full + 8 * s, (gq / AB_STAGES) & 1);
-          const uint64_t da = desc_sw128(
-              s_ring + s * ROW + (DPIX ? 2 - dxi : dxi) * BOX, 16, 1024);
-          const uint64_t dw = desc_sw128(s_w1 + t * BOX, 16, 1024);
-          wgmma_fence();
+  // the row for one GELU flavour: a branch per element on the flavour
+  // kept the compiler from interleaving the elements' epilogues
+  template <bool APPROX>
+  __device__ __forceinline__ void row_as(const float (&acc)[32], int b, int y,
+                                         int x0, const Strips& sp,
+                                         const bf16* __restrict__ go,
+                                         bf16* __restrict__ out) {
+    const size_t prow = ((size_t)b * sp.H + y) * sp.W;
 #pragma unroll
-          for (int kk = 0; kk < C / 16; ++kk) {
-            if (DPIX)  // B = W1 K-major: (c rows, o along k)
-              wgmma_m64n64k16_ss<0, 0>(acc, da + 2 * kk, dw + 2 * kk,
-                                       t > 0 || kk > 0);
-            else       // B = W1 MN-major: (c rows along k, o along n)
-              wgmma_m64n64k16_ss<0, 1>(acc, da + 2 * kk, dw + 128 * kk,
-                                       t > 0 || kk > 0);
-          }
-          wgmma_commit();
-        }
-        wgmma_wait0();
-        fence_regs(acc);
-        mbar_arrive(bar_empty + 8 * ((gb + r) % AB_STAGES));
-        mbar_arrive(bar_empty + 8 * ((gb + r + 1) % AB_STAGES));
-        if (r + 2 >= R) mbar_arrive(bar_empty + 8 * ((gb + r + 2) % AB_STAGES));
-
-        const int y = y0 + r;
-        const size_t prow = ((size_t)b * sp.H + y) * sp.W;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int x = x0 + warp * 16 + g + 8 * h;
-        const bool valid = x < sp.W && y < sp.H;
-        bf16* dst = out + (prow + x) * C + 2 * tq;
-        if (DPIX) {
-          if (valid) {
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-                  __floats2bfloat162_rn(acc[4 * j + 2 * h],
-                                        acc[4 * j + 2 * h + 1]);
-          }
-          continue;
-        }
-        float gk[3] = {0.f, 0.f, 0.f};
-        if (valid) {
-          const bf16* gp = go + (prow + x) * 3;
-          gk[0] = __bfloat162float(gp[0]);
-          gk[1] = __bfloat162float(gp[1]);
-          gk[2] = __bfloat162float(gp[2]);
-        }
-        // element i = 2 j + e is channel 8 j + 2 tq + e
-        float v[16];
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 bb = *reinterpret_cast<const float2*>(B1 + 8 * j + 2 * tq);
-          v[2 * j] = acc[4 * j + 2 * h] + bb.x;
-          v[2 * j + 1] = acc[4 * j + 2 * h + 1] + bb.y;
-          sum += v[2 * j] + v[2 * j + 1];
-        }
-        const float mean = quad_sum(sum) / C;
-        float sq = 0.f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          v[i] -= mean;
-          sq += v[i] * v[i];
-        }
-        const float rstd = rsqrtf(quad_sum(sq) / C + dtail::LN_EPS);
-        float dn[16], dxh[16];
-        float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * j + 2 * tq;
-          const float2 sc = *reinterpret_cast<const float2*>(LNS + c);
-          const float2 sh = *reinterpret_cast<const float2*>(LNB + c);
-          const float2 wa = *reinterpret_cast<const float2*>(W2T + c);
-          const float2 wb = *reinterpret_cast<const float2*>(W2T + C + c);
-          const float2 wc = *reinterpret_cast<const float2*>(W2T + 2 * C + c);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 2 * j + e;
-            const float lsc = e ? sc.y : sc.x;
-            v[i] *= rstd;  // xhat
-            const float n = v[i] * lsc + (e ? sh.y : sh.x);
-            const float dg = gk[0] * (e ? wa.y : wa.x) +
-                             gk[1] * (e ? wb.y : wb.x) +
-                             gk[2] * (e ? wc.y : wc.x);
-            float gl, gd;
-            gelu_and_grad(n, approx, gl, gd);
-            dn[i] = dg * gd;
-            dxh[i] = dn[i] * lsc;
-            s1 += dxh[i];
-            s2 += dxh[i] * v[i];
-            if (valid) {
-              const float gr = __bfloat162float(__float2bfloat16(gl));
-              p_dw2[i][0] += gr * gk[0];
-              p_dw2[i][1] += gr * gk[1];
-              p_dw2[i][2] += gr * gk[2];
-            }
-          }
-        }
-        const float mx = quad_sum(s1) / C;
-        const float mxx = quad_sum(s2) / C;
-        float* du = dxh;  // in place
-#pragma unroll
-        for (int i = 0; i < 16; ++i) du[i] = rstd * (dxh[i] - mx - v[i] * mxx);
-        if (valid) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-                __floats2bfloat162_rn(du[2 * j], du[2 * j + 1]);
-#pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            p_db1[i] += du[i];
-            p_dlns[i] += dn[i] * v[i];
-            p_dlnb[i] += dn[i];
-          }
-          if (tq == 0) {
-            p_db2[0] += gk[0];
-            p_db2[1] += gk[1];
-            p_db2[2] += gk[2];
-          }
-        }
+    for (int h = 0; h < 2; ++h) {
+      const int x = x0 + warp * 16 + g + 8 * h;
+      const bool valid = x < sp.W && y < sp.H;
+      bf16* dst = out + (prow + x) * C + 2 * tq;
+      float gk[3] = {0.f, 0.f, 0.f};
+      if (valid) {
+        const bf16* gp = go + (prow + x) * 3;
+        gk[0] = __bfloat162float(__ldg(gp));
+        gk[1] = __bfloat162float(__ldg(gp + 1));
+        gk[2] = __bfloat162float(__ldg(gp + 2));
       }
+      // element i = 2 j + e is channel 8 j + 2 tq + e
+      float v[16];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(B1 + 8 * j + 2 * tq);
+        v[2 * j] = acc[4 * j + 2 * h] + bb.x;
+        v[2 * j + 1] = acc[4 * j + 2 * h + 1] + bb.y;
+        sum += v[2 * j] + v[2 * j + 1];
       }
-      if (wg == 0) release(gb + R + 1);
-    }
-
-    if (!DPIX) {
-      // one row of partials per consumer warp: sums over its eight rows g
-      float* part = small_part + ((size_t)blockIdx.x * 8 + wg * 4 + warp) * SMALL;
+      const float mean = quad_sum(sum) / C;
+      float sq = 0.f;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        const int c = 8 * (i / 2) + 2 * tq + (i % 2);
-        const float a = rows_sum(p_db1[i]);
-        const float bs = rows_sum(p_dlns[i]);
-        const float cs = rows_sum(p_dlnb[i]);
-        const float d0 = rows_sum(p_dw2[i][0]);
-        const float d1 = rows_sum(p_dw2[i][1]);
-        const float d2 = rows_sum(p_dw2[i][2]);
-        if (g == 0) {
-          part[c] = a;
-          part[C + c] = bs;
-          part[2 * C + c] = cs;
-          part[3 * C + 3 * c] = d0;
-          part[3 * C + 3 * c + 1] = d1;
-          part[3 * C + 3 * c + 2] = d2;
+        v[i] -= mean;
+        sq += v[i] * v[i];
+      }
+      const float rstd = rsqrtf(quad_sum(sq) / C + dtail::LN_EPS);
+      float dn[16], dxh[16];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        const float2 sc = *reinterpret_cast<const float2*>(LNS + c);
+        const float2 sh = *reinterpret_cast<const float2*>(LNB + c);
+        const float2 wa = *reinterpret_cast<const float2*>(W2T + c);
+        const float2 wb = *reinterpret_cast<const float2*>(W2T + C + c);
+        const float2 wc = *reinterpret_cast<const float2*>(W2T + 2 * C + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * j + e;
+          const float lsc = e ? sc.y : sc.x;
+          v[i] *= rstd;  // xhat
+          const float n = v[i] * lsc + (e ? sh.y : sh.x);
+          const float dg = gk[0] * (e ? wa.y : wa.x) +
+                           gk[1] * (e ? wb.y : wb.x) +
+                           gk[2] * (e ? wc.y : wc.x);
+          float gl, gd;
+          gelu_and_grad(n, APPROX, gl, gd);
+          dn[i] = dg * gd;
+          dxh[i] = dn[i] * lsc;
+          s1 += dxh[i];
+          s2 += dxh[i] * v[i];
+          if (valid) {
+            const float gr = __bfloat162float(__float2bfloat16(gl));
+            p_dw2[i][0] += gr * gk[0];
+            p_dw2[i][1] += gr * gk[1];
+            p_dw2[i][2] += gr * gk[2];
+          }
         }
       }
+      const float mx = quad_sum(s1) / C;
+      const float mxx = quad_sum(s2) / C;
+      float* du = dxh;  // in place
 #pragma unroll
-      for (int kq = 0; kq < 3; ++kq) {
-        const float t = rows_sum(p_db2[kq]);
-        if (lane == 0) part[6 * C + kq] = t;
+      for (int i = 0; i < 16; ++i) du[i] = rstd * (dxh[i] - mx - v[i] * mxx);
+      if (valid) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(du[2 * j], du[2 * j + 1]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          p_db1[i] += du[i];
+          p_dlns[i] += dn[i] * v[i];
+          p_dlnb[i] += dn[i];
+        }
+        if (tq == 0) {
+          p_db2[0] += gk[0];
+          p_db2[1] += gk[1];
+          p_db2[2] += gk[2];
+        }
       }
     }
   }
-}
+
+  // one row of partials per consumer warp: sums over its eight rows g
+  __device__ __forceinline__ void finish() {
+    float* part = small_part + ((size_t)blockIdx.x * 8 + wg * 4 + warp) * SMALL;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = 8 * (i / 2) + 2 * tq + (i % 2);
+      const float a = rows_sum(p_db1[i]);
+      const float bs = rows_sum(p_dlns[i]);
+      const float cs = rows_sum(p_dlnb[i]);
+      const float d0 = rows_sum(p_dw2[i][0]);
+      const float d1 = rows_sum(p_dw2[i][1]);
+      const float d2 = rows_sum(p_dw2[i][2]);
+      if (g == 0) {
+        part[c] = a;
+        part[C + c] = bs;
+        part[2 * C + c] = cs;
+        part[3 * C + 3 * c] = d0;
+        part[3 * C + 3 * c + 1] = d1;
+        part[3 * C + 3 * c + 2] = d2;
+      }
+    }
+#pragma unroll
+    for (int kq = 0; kq < 3; ++kq) {
+      const float t = rows_sum(p_db2[kq]);
+      if (lane == 0) part[6 * C + kq] = t;
+    }
+  }
+};
+
+// (B) dpix: the accumulator is the output
+struct DpixEpi {
+  static constexpr bool kRotated = true;
+  static constexpr int kPrmBytes = 0;
+  typedef BwdParams Params;
+
+  static __device__ __forceinline__ void load(const Params&, unsigned char*,
+                                              int) {}
+
+  int warp, g, tq;
+
+  __device__ __forceinline__ DpixEpi(const Params&, unsigned char*)
+      : warp((threadIdx.x & 127) >> 5), g((threadIdx.x & 31) >> 2),
+        tq(threadIdx.x & 3) {}
+
+  __device__ __forceinline__ void row(const float (&acc)[32], int b, int y,
+                                      int x0, const Strips& sp,
+                                      const bf16* __restrict__,
+                                      bf16* __restrict__ out) {
+    const size_t prow = ((size_t)b * sp.H + y) * sp.W;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = x0 + warp * 16 + g + 8 * h;
+      if (x < sp.W && y < sp.H) {
+        bf16* dst = out + (prow + x) * C + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish() {}
+};
 
 // (C) dW1 partials: CTA i takes strips i, i + G, ...; all three consumer
 // warpgroups work on each output row r of a strip: warpgroup dy multiplies
@@ -825,80 +714,31 @@ dw1_kernel(const __grid_constant__ CUtensorMap tm_pix,
   }
 }
 
-// strips of 16 output rows, or fewer where that leaves SMs without a strip
-Strips strips_of(int B, int H, int W) {
-  const int sms = sm_count();
-  Strips sp;
-  sp.H = H;
-  sp.W = W;
-  sp.xt = (W + TILE - 1) / TILE;
-  sp.R = 16;
-  while (sp.R > 2 && B * sp.xt * ((H + sp.R - 1) / sp.R) < sms) sp.R /= 2;
-  sp.ys = (H + sp.R - 1) / sp.R;
-  sp.total = B * sp.xt * sp.ys;
-  return sp;
-}
-
-// one persistent CTA per SM, at most one per strip (all three launches)
-int persistent_grid(const Strips& sp) {
-  return std::min(sm_count(), sp.total);
-}
-
-// a (B, H, W, 64) bf16 tensor as 4-D TMA boxes of (64 channels, 64 pixels)
-bool map_pixels(CUtensorMap* map, const void* ptr, int B, int H, int W) {
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {C, TILE, 1, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims,
-                    strides, box);
-}
-
 int launch(const void* pix, const void* go, const void* w1, const void* b1,
            const void* lns, const void* lnb, const void* w2, void* dpix,
            void* dw1_part, void* small_part, void* du, int B, int H, int W,
            int approx, cudaStream_t st) {
   const Strips sp = strips_of(B, H, W);
   CUtensorMap m_pix, m_du, m_w1;
-  const cuuint64_t wdims[2] = {(cuuint64_t)C, (cuuint64_t)TAPS * C};
-  const cuuint64_t wstrides[1] = {(cuuint64_t)C * 2};
-  const cuuint32_t wbox[2] = {C, C};
   if (!map_pixels(&m_pix, pix, B, H, W) || !map_pixels(&m_du, du, B, H, W) ||
-      !encode_map(&m_w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w1, wdims,
-                  wstrides, wbox))
+      !map_w1(&m_w1, w1))
     return (int)cudaErrorInvalidValue;
-  const bf16* pb1 = static_cast<const bf16*>(b1);
-  const bf16* plns = static_cast<const bf16*>(lns);
-  const bf16* plnb = static_cast<const bf16*>(lnb);
-  const bf16* pw2 = static_cast<const bf16*>(w2);
-  const int grid = persistent_grid(sp);
+  const BwdParams p = {static_cast<const bf16*>(b1),
+                       static_cast<const bf16*>(lns),
+                       static_cast<const bf16*>(lnb),
+                       static_cast<const bf16*>(w2),
+                       static_cast<float*>(small_part), approx};
+  int err = launch_strips<DuEpi>(m_pix, m_w1, static_cast<const bf16*>(go),
+                                 static_cast<bf16*>(du), p, sp, st);
+  if (err != cudaSuccess) return err;
+  err = launch_strips<DpixEpi>(m_du, m_w1, nullptr, static_cast<bf16*>(dpix),
+                               p, sp, st);
+  if (err != cudaSuccess) return err;
 
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      AB_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  conv_kernel<false><<<grid, AB_THREADS, AB_SMEM, st>>>(
-      m_pix, m_w1, static_cast<const bf16*>(go), pb1, plns, plnb, pw2,
-      static_cast<bf16*>(du), static_cast<float*>(small_part), sp, approx);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = cudaFuncSetAttribute(conv_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             AB_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  conv_kernel<true><<<grid, AB_THREADS, AB_SMEM, st>>>(
-      m_du, m_w1, nullptr, pb1, plns, plnb, pw2, static_cast<bf16*>(dpix),
-      nullptr, sp, approx);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = cudaFuncSetAttribute(dw1_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             W_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dw1_kernel<<<grid, W_THREADS, W_SMEM, st>>>(
+  cudaError_t e = cudaFuncSetAttribute(
+      dw1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dw1_kernel<<<persistent_grid(sp), W_THREADS, W_SMEM, st>>>(
       m_pix, m_du, static_cast<float*>(dw1_part), sp);
   return (int)cudaGetLastError();
 }
@@ -923,8 +763,8 @@ int decoder_tail_bwd_f32(const void* pix, const void* go, const void* w1,
                          const void* w2, void* dpix, void* dw1_part,
                          void* small_part, void*, int B, int H, int W,
                          int approx, void* stream) {
-  return launch<float>(pix, go, w1, b1, lns, lnb, w2, dpix, dw1_part,
-                       small_part, B, H, W, approx, stream);
+  return launch_f32(pix, go, w1, b1, lns, lnb, w2, dpix, dw1_part,
+                    small_part, B, H, W, approx, stream);
 }
 
 // The fp32 partial buffers the bf16 (bf16 != 0) or fp32 launch writes, as

@@ -21,24 +21,42 @@
 // in bf16, 0.032 ms at 3.35 TB/s. The (B, H, W, 64) conv output never goes
 // to device memory, which is what the TPU kernel is for.
 //
-// What this simple design does about it: one CTA of 8 warps per 16 x 16
-// output tile; the tile's 18 x 18 pixels (one-pixel halo) and the 9 x 64 x
-// 64 conv weights sit in shared memory; each warp takes one output row of
-// 16 pixels at a time and runs the conv as 9 shifted (16 x 64) . (64 x 64)
-// products on the tensor cores (WMMA bf16, fp32 accumulate), then the
-// per-pixel LayerNorm, GELU and 64 -> 3 dot with one lane per two
-// channels. What it does not do yet: the conv output takes a round trip
-// through shared memory before the epilogue, the loads are synchronous,
-// the products are WMMA (not wgmma), and every CTA loads the weights
-// again. The fp32 instantiation runs scalar FMAs and reads the weights
-// from global memory: it exists for tight fp32 comparisons, not speed.
+// What this design does about it (bf16, sm_90a): the strip mainloop of
+// decoder_tail_hopper.cuh, shared with the backward's du and dpix launches.
+// One persistent CTA per SM walks strips of R = 16 output rows x 64 pixels
+// of one image (R halved while SMs would stand idle). W1 (72 KiB) is loaded
+// once per CTA by TMA and stays resident. One producer warp fills a 6-stage
+// ring; a stage is one input row's three dx-shifted boxes of a 4-D (C, W,
+// H, B) map whose zero fill is the SAME padding, loaded once per strip. Two
+// consumer warpgroups take the even and odd rows, so one's epilogue runs
+// while the other's products do: a row is 9 taps x 4 wgmma m64n64k16 (A the
+// pixel box K-major, B the resident W1 MN-major, fp32 accumulate). The
+// epilogue works on the accumulator fragments, with no round trip of u
+// through shared memory: a pixel's 64 channels lie in the four threads of
+// one quad, so the LayerNorm mean and variance and each of the three
+// output dots are a thread's 16 channels and two shuffles. GELU is erff, or
+// for the tanh flavour tanh.approx.f32 (about 2^-11 relative), since g is
+// rounded to bf16 (2^-9) right after. A warp stages its 16 pixels' 48
+// outputs (96 contiguous bytes of NHWC) in shared memory and writes them in
+// six 16-byte stores, or in 2-byte stores where the unit is ragged or the
+// row is not 16-byte aligned (a TMA store would need 16-byte row strides,
+// which the 6 W-byte rows break at widths such as W = 29). No atomics and a
+// static schedule: two runs give the same bits.
 //
-// The launcher allocates nothing and does not synchronize; it returns
+// The fp32 route is scalar: one CTA of 8 warps per 16 x 16 output tile over
+// an 18 x 18 halo in shared memory, FMAs with the weights read through L1.
+// It exists for tight fp32 comparisons, not speed.
+//
+// The launchers allocate nothing and do not synchronize; they return
 // cudaGetLastError() so the caller can raise on a refused launch.
 
-#include "decoder_tail_common.cuh"
+#include "decoder_tail_hopper.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// fp32: the scalar route
+// ---------------------------------------------------------------------------
 
 using namespace dtail;
 
@@ -46,31 +64,23 @@ constexpr int TH = 16, TW = 16;          // output pixels per CTA
 constexpr int PH = TH + 2, PW = TW + 2;  // with the one-pixel halo
 constexpr int PRM = 3 * C + 3 * C + 3;   // b1, ln scale, ln bias, W2, b2
 constexpr int PRM_PAD = (PRM + 7) / 8 * 8;
+constexpr size_t SMEM_BYTES =
+    ((size_t)PH * PW * LD + (size_t)WARPS * 16 * LDE + PRM_PAD) *
+    sizeof(float);
 
-template <typename T>
-size_t smem_bytes() {
-  size_t bytes = (size_t)PH * PW * Tile<T>::LD * sizeof(T)
-      + (size_t)WARPS * 16 * LDE * sizeof(float)
-      + (size_t)PRM_PAD * sizeof(float);
-  if (Tile<T>::kSmemWeights)
-    bytes += (size_t)9 * C * Tile<T>::LDW * sizeof(T);
-  return bytes;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-decoder_tail_fwd_kernel(const T* __restrict__ pix, const T* __restrict__ w1,
-                        const T* __restrict__ b1, const T* __restrict__ lns,
-                        const T* __restrict__ lnb, const T* __restrict__ w2,
-                        const T* __restrict__ b2, T* __restrict__ out, int H,
-                        int W, int approx_i) {
-  constexpr int LD = Tile<T>::LD;
-  constexpr int LDW = Tile<T>::LDW;
+decoder_tail_fwd_kernel(const float* __restrict__ pix,
+                        const float* __restrict__ w1,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ lns,
+                        const float* __restrict__ lnb,
+                        const float* __restrict__ w2,
+                        const float* __restrict__ b2, float* __restrict__ out,
+                        int H, int W, int approx_i) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Ps = reinterpret_cast<T*>(smem);                     // PH*PW pixels
-  float* Es = reinterpret_cast<float*>(Ps + PH * PW * LD);  // WARPS*16 rows
+  float* Ps = reinterpret_cast<float*>(smem);  // PH*PW pixels
+  float* Es = Ps + PH * PW * LD;               // WARPS*16 rows
   float* Prm = Es + WARPS * 16 * LDE;
-  T* Ws = reinterpret_cast<T*>(Prm + PRM_PAD);            // 9*C rows
   float* B1 = Prm;
   float* LNS = B1 + C;
   float* LNB = LNS + C;
@@ -84,37 +94,35 @@ decoder_tail_fwd_kernel(const T* __restrict__ pix, const T* __restrict__ w1,
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
-  const T* img = pix + (size_t)b * H * W * C;
+  const float* img = pix + (size_t)b * H * W * C;
 
   load_pixels(Ps, img, H, W, y0 - 1, x0 - 1, PH, PW);
   for (int i = tid; i < C; i += THREADS) {
-    B1[i] = to_f32(b1[i]);
-    LNS[i] = to_f32(lns[i]);
-    LNB[i] = to_f32(lnb[i]);
+    B1[i] = b1[i];
+    LNS[i] = lns[i];
+    LNB[i] = lnb[i];
   }
-  for (int i = tid; i < 3 * C; i += THREADS) W2[i] = to_f32(w2[i]);
-  if (tid < 3) B2[tid] = to_f32(b2[tid]);
-  if (Tile<T>::kSmemWeights) load_weights(Ws, w1);
+  for (int i = tid; i < 3 * C; i += THREADS) W2[i] = w2[i];
+  if (tid < 3) B2[tid] = b2[tid];
   __syncthreads();
 
-  const T* Wp = Tile<T>::kSmemWeights ? Ws : w1;
   float* Ew = Es + warp * 16 * LDE;
   const int c0 = 2 * lane;  // this lane's two channels in the epilogue
 
   for (int r = warp; r < TH; r += WARPS) {
     const int y = y0 + r;
     if (y >= H) break;
-    Acc<T> acc[4];
+    Acc acc[4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) zero(acc[n]);
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
-      const T* a = Ps + ((r + dy) * PW + dx) * LD;
-      const T* wt = Wp + tap * C * LDW;
+      const float* a = Ps + ((r + dy) * PW + dx) * LD;
+      const float* wt = w1 + tap * C * C;
 #pragma unroll
       for (int cb = 0; cb < 4; ++cb)
-        mma16x64<wmma::row_major, wmma::row_major>(
-            acc, a + cb * 16, LD, wt + cb * 16 * LDW, LDW, 16, lane);
+        mma16x64<true, true>(acc, a + cb * 16, LD, wt + cb * 16 * C, C, 16,
+                             lane);
     }
 #pragma unroll
     for (int n = 0; n < 4; ++n) store(Ew + n * 16, LDE, acc[n], lane);
@@ -129,42 +137,203 @@ decoder_tail_fwd_kernel(const T* __restrict__ pix, const T* __restrict__ w1,
       const float d0 = u0 - mean, d1 = u1 - mean;
       const float var = warp_sum(d0 * d0 + d1 * d1) / C;
       const float rstd = rsqrtf(var + LN_EPS);
-      const float g0 = round_to<T>(gelu(d0 * rstd * LNS[c0] + LNB[c0],
-                                        approx));
-      const float g1 = round_to<T>(gelu(d1 * rstd * LNS[c0 + 1]
-                                        + LNB[c0 + 1], approx));
+      const float g0 = gelu(d0 * rstd * LNS[c0] + LNB[c0], approx);
+      const float g1 = gelu(d1 * rstd * LNS[c0 + 1] + LNB[c0 + 1], approx);
       float o[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k)
         o[k] = warp_sum(g0 * W2[c0 * 3 + k] + g1 * W2[(c0 + 1) * 3 + k]);
       if (lane < 3)
-        out[((size_t)(b * H + y) * W + x) * 3 + lane] =
-            from_f32<T>(o[lane] + B2[lane]);
+        out[((size_t)(b * H + y) * W + x) * 3 + lane] = o[lane] + B2[lane];
     }
     __syncwarp();
   }
 }
 
-template <typename T>
-int launch(const void* pix, const void* w1, const void* b1, const void* lns,
-           const void* lnb, const void* w2, const void* b2, void* out, int B,
-           int H, int W, int approx, void* stream) {
-  const size_t smem = smem_bytes<T>();
+int launch_f32(const void* pix, const void* w1, const void* b1,
+               const void* lns, const void* lnb, const void* w2,
+               const void* b2, void* out, int B, int H, int W, int approx,
+               void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_tail_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decoder_tail_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  decoder_tail_fwd_kernel<T><<<grid, THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pix), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(lns),
-      static_cast<const T*>(lnb), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), H, W, approx);
+  decoder_tail_fwd_kernel<<<grid, THREADS, SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pix), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(lns),
+      static_cast<const float*>(lnb), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), H, W, approx);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// bf16: the forward epilogue on the strip mainloop
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+// gelu (decoder_tail_common.cuh's expressions) with the tanh flavour on
+// tanh.approx.f32: its result is rounded to bf16 next
+__device__ __forceinline__ float gelu_bf16_route(float x, bool approx) {
+  if (approx)
+    return 0.5f * x * (1.0f + tanh_approx(0.7978845608028654f *
+                                          (x + 0.044715f * (x * x * x))));
+  return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
+}
+
+struct FwdParams {
+  const bf16* b1;
+  const bf16* lns;
+  const bf16* lnb;
+  const bf16* w2;
+  const bf16* b2;
+  int approx;
+};
+
+struct FwdEpi {
+  static constexpr bool kRotated = false;
+  // b1, lns, lnb, W2T (3, C), b2 (3 + 1 pad) in fp32, then each consumer
+  // warp's staged outputs: 16 pixels x 3 bf16 (96 bytes)
+  static constexpr int kPrmFloats = 6 * C + 4;
+  static constexpr int kStage = 16 * 3;
+  static constexpr int kPrmBytes = kPrmFloats * 4 + 8 * kStage * 2;
+  typedef FwdParams Params;
+
+  static __device__ __forceinline__ void load(const Params& p,
+                                              unsigned char* prm, int tid) {
+    float* B1 = reinterpret_cast<float*>(prm);
+    float* LNS = B1 + C;
+    float* LNB = LNS + C;
+    float* W2T = LNB + C;
+    float* B2 = W2T + 3 * C;
+    for (int i = tid; i < C; i += AB_THREADS) {
+      B1[i] = __bfloat162float(p.b1[i]);
+      LNS[i] = __bfloat162float(p.lns[i]);
+      LNB[i] = __bfloat162float(p.lnb[i]);
+    }
+    for (int i = tid; i < 3 * C; i += AB_THREADS)
+      W2T[(i % 3) * C + i / 3] = __bfloat162float(p.w2[i]);
+    if (tid < 3) B2[tid] = __bfloat162float(p.b2[tid]);
+  }
+
+  const float* B1;
+  const float* LNS;
+  const float* LNB;
+  const float* W2T;  // (3, C): W2 transposed, channel pairs adjacent
+  const float* B2;
+  bf16* stage;       // this warp's 16 pixels x 3
+  bool approx;
+  int warp, lane, g, tq;
+
+  __device__ __forceinline__ FwdEpi(const Params& p, unsigned char* prm)
+      : B1(reinterpret_cast<const float*>(prm)), LNS(B1 + C), LNB(LNS + C),
+        W2T(LNB + C), B2(W2T + 3 * C),
+        stage(reinterpret_cast<bf16*>(prm + kPrmFloats * 4) +
+              (threadIdx.x >> 5) * kStage),
+        approx(p.approx != 0), warp((threadIdx.x & 127) >> 5),
+        lane(threadIdx.x & 31), g(lane >> 2), tq(lane & 3) {}
+
+  __device__ __forceinline__ void row(const float (&acc)[32], int b, int y,
+                                      int x0, const Strips& sp,
+                                      const bf16* __restrict__,
+                                      bf16* __restrict__ out) {
+    if (approx) row_as<true>(acc, b, y, x0, sp, out);
+    else row_as<false>(acc, b, y, x0, sp, out);
+  }
+
+  // the row for one GELU flavour: a branch per element on the flavour
+  // kept the compiler from interleaving the elements' epilogues
+  template <bool APPROX>
+  __device__ __forceinline__ void row_as(const float (&acc)[32], int b, int y,
+                                         int x0, const Strips& sp,
+                                         bf16* __restrict__ out) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // element i = 2 j + e is channel 8 j + 2 tq + e of pixel g + 8 h
+      float v[16];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(B1 + 8 * j + 2 * tq);
+        v[2 * j] = acc[4 * j + 2 * h] + bb.x;
+        v[2 * j + 1] = acc[4 * j + 2 * h + 1] + bb.y;
+        sum += v[2 * j] + v[2 * j + 1];
+      }
+      const float mean = quad_sum(sum) / C;
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        v[i] -= mean;
+        sq += v[i] * v[i];
+      }
+      const float rstd = rsqrtf(quad_sum(sq) / C + dtail::LN_EPS);
+      float o0 = 0.f, o1 = 0.f, o2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tq;
+        const float2 sc = *reinterpret_cast<const float2*>(LNS + c);
+        const float2 sh = *reinterpret_cast<const float2*>(LNB + c);
+        const float2 wa = *reinterpret_cast<const float2*>(W2T + c);
+        const float2 wb = *reinterpret_cast<const float2*>(W2T + C + c);
+        const float2 wc = *reinterpret_cast<const float2*>(W2T + 2 * C + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float n = v[2 * j + e] * rstd * (e ? sc.y : sc.x)
+              + (e ? sh.y : sh.x);
+          const float gr =
+              __bfloat162float(__float2bfloat16(gelu_bf16_route(n, APPROX)));
+          o0 += gr * (e ? wa.y : wa.x);
+          o1 += gr * (e ? wb.y : wb.x);
+          o2 += gr * (e ? wc.y : wc.x);
+        }
+      }
+      o0 = quad_sum(o0);
+      o1 = quad_sum(o1);
+      o2 = quad_sum(o2);
+      if (tq < 3)
+        stage[(g + 8 * h) * 3 + tq] =
+            __float2bfloat16((tq == 0 ? o0 : tq == 1 ? o1 : o2) + B2[tq]);
+    }
+    __syncwarp();
+    const int xw = x0 + warp * 16;
+    const int n = sp.W - xw < 16 ? sp.W - xw : 16;
+    if (y < sp.H && n > 0) {
+      bf16* dst = out + (((size_t)b * sp.H + y) * sp.W + xw) * 3;
+      if (n == 16 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        if (lane < 6)
+          reinterpret_cast<uint4*>(dst)[lane] =
+              reinterpret_cast<const uint4*>(stage)[lane];
+      } else {
+        for (int i = lane; i < 3 * n; i += 32) dst[i] = stage[i];
+      }
+    }
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ void finish() {}
+};
+
+int launch(const void* pix, const void* w1, const void* b1, const void* lns,
+           const void* lnb, const void* w2, const void* b2, void* out, int B,
+           int H, int W, int approx, cudaStream_t st) {
+  const Strips sp = strips_of(B, H, W);
+  CUtensorMap m_pix, m_w1;
+  if (!map_pixels(&m_pix, pix, B, H, W) || !map_w1(&m_w1, w1))
+    return (int)cudaErrorInvalidValue;
+  const FwdParams p = {static_cast<const bf16*>(b1),
+                       static_cast<const bf16*>(lns),
+                       static_cast<const bf16*>(lnb),
+                       static_cast<const bf16*>(w2),
+                       static_cast<const bf16*>(b2), approx};
+  return launch_strips<FwdEpi>(m_pix, m_w1, nullptr, static_cast<bf16*>(out),
+                               p, sp, st);
+}
+
+}  // namespace hop
 
 extern "C" {
 
@@ -172,16 +341,16 @@ int decoder_tail_fwd_bf16(const void* pix, const void* w1, const void* b1,
                           const void* lns, const void* lnb, const void* w2,
                           const void* b2, void* out, int B, int H, int W,
                           int approx, void* stream) {
-  return launch<__nv_bfloat16>(pix, w1, b1, lns, lnb, w2, b2, out, B, H, W,
-                               approx, stream);
+  return hop::launch(pix, w1, b1, lns, lnb, w2, b2, out, B, H, W, approx,
+                     static_cast<cudaStream_t>(stream));
 }
 
 int decoder_tail_fwd_f32(const void* pix, const void* w1, const void* b1,
                          const void* lns, const void* lnb, const void* w2,
                          const void* b2, void* out, int B, int H, int W,
                          int approx, void* stream) {
-  return launch<float>(pix, w1, b1, lns, lnb, w2, b2, out, B, H, W, approx,
-                       stream);
+  return launch_f32(pix, w1, b1, lns, lnb, w2, b2, out, B, H, W, approx,
+                    stream);
 }
 
 const char* decoder_tail_fwd_error_string(int code) {

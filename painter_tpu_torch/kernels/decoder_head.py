@@ -44,6 +44,9 @@ from painter_tpu_torch.kernels import build
 
 LN_EPS = 1e-6
 CHANNELS = 64  # the kernels are built for the decoder width of the presets
+# K3's and K4's device kernels, as the profiler names them
+KERNEL_NAMES = ("strip_kernel", "dw1_kernel", "decoder_tail_fwd_kernel",
+                "decoder_tail_bwd_kernel")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 

@@ -260,6 +260,72 @@ def test_backward_unit_split_matches_plain_fp32(approx):
     assert not torch.allclose(leak[0], ref[0], rtol=1e-3, atol=1e-3)
 
 
+def _strips(b, h, w, tile, sms):
+    """``strips_of`` of ``csrc/decoder_tail_hopper.cuh``: strips of R rows
+    (16, halved while fewer strips than SMs) -> (R, strips down an image,
+    unit columns, total strips)."""
+    xt = -(-w // tile)
+    r = 16
+    while r > 2 and b * xt * -(-h // r) < sms:
+        r //= 2
+    ys = -(-h // r)
+    return r, ys, xt, b * xt * ys
+
+
+def _k3_split(pix, w1, b1, lns, lnb, w2, b2, approx, tile, sms, flat=False):
+    """K3's bf16 route in plain torch, fp32: persistent CTAs (one per SM, at
+    most one per strip) walk strips of R rows of one ``tile``-pixel unit
+    column, decoded as ``Strips::decode``; every row of a strip is u from
+    nine shifted tap boxes (a 4-D map, or the 3-D one with ``flat``), then
+    the per-pixel LayerNorm / GELU / 64 -> 3 epilogue; rows past H are
+    computed and masked. Returns the output and how often each pixel was
+    written."""
+    bsz, h, w, c = pix.shape
+    wk = w1.permute(2, 3, 1, 0).reshape(9, c, c)  # (tap, c, o)
+    w2k = w2.reshape(3, c).t()
+    r, ys, xt, total = _strips(bsz, h, w, tile, sms)
+    grid = min(sms, total)
+    out = torch.zeros(bsz, h, w, 3)
+    hits = torch.zeros(bsz, h, w, dtype=torch.int64)
+    for cta in range(grid):
+        for st in range(cta, total, grid):
+            col, rest = st % xt, st // xt
+            b, y0, x0 = rest // ys, rest % ys * r, col * tile
+            n = min(tile, w - x0)
+            for y in range(y0, y0 + r):
+                u = sum(_box(pix, b, y + dy - 1, x0 + dx - 1, tile, flat)
+                        @ wk[3 * dy + dx]
+                        for dy in range(3) for dx in range(3)) + b1
+                mean = u.mean(-1, keepdim=True)
+                rstd = torch.rsqrt(((u - mean) ** 2).mean(-1, keepdim=True)
+                                   + dh.LN_EPS)
+                g = dh._gelu((u - mean) * rstd * lns + lnb, approx)
+                if y < h:
+                    out[b, y, x0:x0 + n] = (g @ w2k + b2)[:n]
+                    hits[b, y, x0:x0 + n] += 1
+    return out, hits
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_forward_strip_split_matches_plain_fp32(approx):
+    """K3's decomposition (persistent CTAs over strips, u per unit row from
+    nine shifted tap boxes, the epilogue per pixel) == the plain forward in
+    fp32 to 1e-5 x max |plain|, on a ragged shape (W = 19: the last 8-pixel
+    unit holds 3; H = 5 with R = 4: a short last strip) whose boxes cross
+    every image edge, in two images; every pixel is written once. With a
+    3-D map over B*H rows the first image's bottom halo reads the second
+    image's top row: that model must differ, which pins the 4-D map."""
+    b, h, w, c = 2, 5, 19, 16
+    args = _port_args(_inputs(13, b, h, w, c), torch.float32)
+    ref = dh.fused_decoder_tail_reference(*args, approx)
+    assert h % _strips(b, h, w, 8, 8)[0] != 0
+    got, hits = _k3_split(*args, approx, tile=8, sms=8)
+    assert torch.equal(hits, torch.ones_like(hits))
+    _close_rel(got.numpy(), ref.numpy(), 1e-5, "out")
+    leak, _ = _k3_split(*args, approx, tile=8, sms=8, flat=True)
+    assert not torch.allclose(leak, ref, rtol=1e-3, atol=1e-3)
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A tensor that is neither on the CPU nor on a CUDA device gets no
     plain version: the wrappers raise."""
@@ -273,8 +339,9 @@ def test_kernel_wrappers_refuse_other_devices():
 def test_kernel_sources_note_their_tpu_kernels_and_headers_are_hashed(
         tmp_path, monkeypatch):
     """Each new source names the TPU kernel it replaces and exposes a C
-    launcher; an edit of the shared header changes the build target of
-    the sources that include it, so a stale library is never loaded."""
+    launcher; an edit of a shared header (the fp32 pieces, the bf16 strip
+    mainloop) changes the build targets of both decoder-tail sources that
+    include it, so a stale library is never loaded."""
     import shutil
     from painter_tpu_torch.kernels import build
     notes = {
@@ -286,10 +353,34 @@ def test_kernel_sources_note_their_tpu_kernels_and_headers_are_hashed(
         with open(f"{build.CSRC}/{name}.cu") as f:
             src = f.read()
         assert note in src and 'extern "C"' in src, name
+        if name.startswith("decoder_tail"):
+            assert '#include "decoder_tail_hopper.cuh"' in src, name
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", str(csrc))
-    before = build._target("decoder_tail_fwd")
-    with open(csrc / "decoder_tail_common.cuh", "a") as f:
-        f.write("// edited\n")
-    assert build._target("decoder_tail_fwd") != before
+    tail = ("decoder_tail_fwd", "decoder_tail_bwd")
+    for header in ("decoder_tail_common.cuh", "decoder_tail_hopper.cuh"):
+        before = [build._target(name) for name in tail]
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        after = [build._target(name) for name in tail]
+        assert all(a != b for a, b in zip(after, before)), header
+
+
+def test_kernel_variant_edits_apply_to_the_sources(tmp_path):
+    """Every design variant of ``utils/kernel_variants`` still finds each
+    string it edits exactly once in the current sources, so the trials it
+    times against the real kernel stay buildable."""
+    from painter_tpu_torch.utils import kernel_variants as kv
+    variants = {**{f"k3_{k}": v for k, v in kv.K3_VARIANTS.items()},
+                **{f"k4_{k}": v for k, v in kv.K4_VARIANTS.items()}}
+    for name, (source, edits) in variants.items():
+        dst = tmp_path / name
+        kv.apply_edits(edits, str(dst))
+        assert (dst / f"{source}.cu").exists(), name
+        for fname, pairs in edits.items():
+            text = (dst / fname).read_text()
+            assert all(new in text for _, new in pairs), (name, fname)
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        kv.apply_edits({"decoder_tail_fwd.cu": [("no such text", "")]},
+                       str(tmp_path / "missing"))
