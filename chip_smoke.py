@@ -8,9 +8,17 @@ fused decoder tail forward / backward, K5 the fused w8a8 MLP) against its
 plain PyTorch version on the card, then drives the main paths at full
 width and depth with random weights from a seed: serving SegGPT ViT-L
 896x448 (bf16) through ``InContextModel``, in bf16 and quantized (int8,
-and int8 with the fused MLP kernel); and training Painter ViT-L 896x448
-(bf16 compute, fp32 params) with the fused decoder tail through
-``painter_tpu_torch.train.train.main`` on a synthetic dataset, after
+and int8 with the fused MLP kernel); the rest of serving through the
+entry points a user calls: SegGPT's video protocol on 10 DAVIS-sized
+frames through both prompt caches (bitwise equal, also after the device
+cache's circular insert reorders the rows) and their steady rates over 56
+more, ``seggpt_cli.main`` in image mode (bf16 and int8-fused), the HTTP
+endpoint (``demo_app.serve``: single /paint requests, 8 concurrent ones
+micro-batched, 8 clients in a closed loop, one /paint_video) and Painter
+ViT-L's depth task through ``painter_task_inference``; and training
+Painter ViT-L 896x448 (bf16 compute, fp32 params) with the fused decoder
+tail through ``painter_tpu_torch.train.train.main`` on a synthetic
+dataset, after
 full-model gradient checks of K1/K2 against plain attention and of K3/K4
 against the stock tail. Checks that each path went through its kernels,
 and that K2, K3, K4 and K5 give the same bits on two runs of the same
@@ -19,6 +27,7 @@ last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is not 0 and the last line is not printed. Needs a CUDA device;
 it imports nothing of JAX.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -793,6 +802,496 @@ def profile_device(fn, what, label):
     return f"{share:.3f}"
 
 
+# the endpoint's batched composites against another bf16 forward of the
+# same request that rounds in other places: FWD_BF16_TOL on the painted
+# [0,1] scale moves the composite input * (0.6 * out + 0.4) by at most
+# 0.6 * 255 * 3e-2 = 4.59 uint8 steps, so 5
+COMPOSITE_STEPS = 5
+# DAVIS frames (SegGPT's video protocol), the demo's rolling cache depth
+VIDEO_HW, VIDEO_FRAMES, VIDEO_CACHE = (480, 854), 10, 4
+# the steady-rate video drive: the first 8 frames fill the cache (buckets
+# 1, 2, 4, 4, 8, ...), the rate is read over the 48 after them, all at
+# bucket 8
+RATE_FRAMES, RATE_WARM = 56, 8
+# the endpoint's rate drives: single /paint requests one after another
+# (latency percentiles), then 8 clients that each send their next request
+# as soon as the last is answered (requests/s, latency percentiles)
+SINGLE_REQUESTS, CLIENTS, REQUESTS_PER_CLIENT = 20, 8, 8
+
+
+def _smooth_u8(rng, hw):
+    """A smooth synthetic uint8 RGB image (random 16x16 field, bicubic)."""
+    from PIL import Image
+    small = (rng.rand(16, 16, 3) * 255).astype(np.uint8)
+    return np.asarray(Image.fromarray(small).resize((hw[1], hw[0]),
+                                                    Image.BICUBIC))
+
+
+def _write_pngs(root, names, hw, seed):
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    paths = []
+    for name in names:
+        path = f"{root}/{name}.png"
+        Image.fromarray(_smooth_u8(rng, hw)).save(path)
+        paths.append(path)
+    return paths
+
+
+def _video_pass(run, eng, frames, img2, tgt2):
+    """One video path over ``frames``: composites, K1 launches, frames/s
+    after the first frame, the peak memory and the host clock at the end
+    of each frame (closed by its fetch)."""
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comps, stamps = [], []
+    fr.flash_attention_relpos.launches = 0
+    for comp in run(eng, frames, tgt2, VIDEO_CACHE, img2=img2,
+                    res=eng.cfg.img_size[1]):
+        stamps.append(time.perf_counter())
+        comps.append(comp)
+    launches = fr.flash_attention_relpos.launches
+    fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    return (comps, launches, fps, torch.cuda.max_memory_allocated() / 1e9,
+            stamps)
+
+
+def _percentiles(seconds):
+    """p50 and p90 in ms (nearest rank)."""
+    ms = np.sort(np.asarray(seconds) * 1e3)
+    return tuple(float(ms[min(len(ms) - 1, int(np.ceil(q * len(ms))) - 1)])
+                 for q in (0.5, 0.9))
+
+
+def phase_video(model, label):
+    """SegGPT's video protocol on SegGPT ViT-L: 10 DAVIS-sized frames, a
+    4-frame rolling cache, img2 given (every frame painted), through
+    ``run_video_frames_device`` (the cache on the card, ``VideoEngine``)
+    and ``run_video_frames`` (the cache on the host), bitwise equal on
+    every frame, before the circular insert first reorders the rows and
+    after; then the steady rate of each path over RATE_FRAMES more
+    frames. Returns K1's launches on both paths and both drives."""
+    from PIL import Image
+    from painter_tpu_torch.infer import engine
+    cfg = model.cfg
+    res = cfg.img_size[1]
+    eng = engine.InContextModel(cfg, model, device="cuda")
+    rng = np.random.RandomState(7)
+    frames = [_smooth_u8(rng, VIDEO_HW) for _ in range(VIDEO_FRAMES)]
+    img2 = _smooth_u8(rng, (res, res)) / 255.0
+    tgt2 = np.repeat((_smooth_u8(rng, (res, res))[..., :1] > 127)
+                     .astype(np.float32), 3, axis=-1)
+
+    painted = {"device": [], "host": []}
+    model_s = {"device": [], "host": []}  # host clock of each model call
+    states = []
+
+    class RecordingEngine(engine.VideoEngine):
+        def paint_frame(self, query, out_dtype=np.float32):
+            used = (self.bucket, self._n_real)
+            t0 = time.perf_counter()
+            out = super().paint_frame(query, out_dtype)
+            model_s["device"].append(time.perf_counter() - t0)
+            states.append(used + (self._wrap,))
+            painted["device"].append(out)
+            return out
+
+    def host_run_one_image(img, tgt):
+        t0 = time.perf_counter()
+        out = engine.InContextModel.run_one_image(eng, img, tgt)
+        model_s["host"].append(time.perf_counter() - t0)
+        painted["host"].append(out)
+        return out
+
+    # run_video_frames_device makes its VideoEngine by the module's name
+    original = engine.VideoEngine
+    engine.VideoEngine = RecordingEngine
+    try:
+        dev, dev_k1, dev_fps, dev_gb, _ = _video_pass(
+            engine.run_video_frames_device, eng, frames, img2, tgt2)
+    finally:
+        engine.VideoEngine = original
+    eng.run_one_image = host_run_one_image
+    host, host_k1, host_fps, host_gb, _ = _video_pass(
+        engine.run_video_frames, eng, frames, img2, tgt2)
+
+    buckets = [st[0] for st in states]
+    rows = [st[1] for st in states]
+    wraps = [st[2] for st in states]
+    print(f"# video: device cache (bucket, real rows, insert pointer after "
+          f"the frame) per frame {states}")
+    check(buckets == [1, 2, 4, 4, 8, 8, 8, 8, 8, 8],
+          f"device cache buckets {buckets}, expected 1->2->4->8")
+    check(rows == [1, 2, 3, 4, 5, 5, 5, 5, 5, 5], f"real rows {rows}")
+    # the fifth frame's insert is the first circular one (row 1), so the
+    # sixth frame is the first to see the rows out of the host's order
+    check(wraps == [0, 0, 0, 0, 1, 2, 3, 0, 1, 2], f"insert pointer {wraps}")
+    wrap_at = 5
+    for name, comps, k1 in (("device", dev, dev_k1), ("host", host, host_k1)):
+        check(len(comps) == VIDEO_FRAMES,
+              f"{name} path painted {len(comps)} frames")
+        check(k1 == cfg.depth * VIDEO_FRAMES,
+              f"{name} path launched K1 {k1} times, expected "
+              f"{cfg.depth * VIDEO_FRAMES}")
+        for c in comps:
+            check(c.shape == VIDEO_HW + (3,) and c.dtype == np.uint8,
+                  f"{name} composite {c.shape} {c.dtype}")
+        for out in painted[name]:
+            check(np.isfinite(out).all(), f"{name} painted non-finite")
+    # Before the wrap both paths feed the same values in the same row
+    # order at the same shapes. After it the device cache holds the rows
+    # in another order than the host's FIFO. Everything but the feature
+    # ensemble is per row (K1 per head, each cuBLAS output element over K
+    # alone, LayerNorm per token); the ensemble rounds each feature x
+    # weight product to bf16 (8 significant bits) and sums the five real
+    # ones in an fp32 accumulator before one bf16 rounding, so the order
+    # shows only if their exponents spread over more than ~16 bits and
+    # the bf16 rounding then sits on a tie. The frames are seeded and the
+    # kernels deterministic: the check is bitwise on every frame, and a
+    # wrong or stale cache row fails it by any amount it moves the output.
+    for i in range(VIDEO_FRAMES):
+        check(np.array_equal(painted["device"][i], painted["host"][i])
+              and np.array_equal(dev[i], host[i]),
+              f"video frame {i + 1}: the device cache differs from the host "
+              f"cache {'after' if i >= wrap_at else 'before'} the wrap")
+    diffs = [np.abs(a.astype(np.int32) - b.astype(np.int32))
+             for a, b in zip(dev[wrap_at:], host[wrap_at:])]
+
+    def mask(out):
+        return np.clip(out * 255.0, 0, 255).mean(-1) > 128
+
+    mask_share = [float((mask(a) != mask(b)).mean()) for a, b in
+                  zip(painted["device"][wrap_at:], painted["host"][wrap_at:])]
+    worst = int(max(d.max() for d in diffs))
+    painted_gap = max(float(np.abs(a - b).max()) for a, b in
+                      zip(painted["device"][wrap_at:],
+                          painted["host"][wrap_at:]))
+    fg = float(np.mean([mask(o).mean() for o in painted["host"]]))
+    print(f"# video frames 1-{VIDEO_FRAMES}: device and host caches "
+          f"bitwise equal (painted halves and composites), before the wrap "
+          f"(frames 1-{wrap_at}) and after it: largest composite difference "
+          f"{worst} steps, share of pixels > 1 step "
+          f"{[float((d > 1).mean()) for d in diffs]}, share of re-prompt "
+          f"mask pixels that differ {mask_share}, largest painted [0,1] "
+          f"difference {painted_gap:.3e}; re-prompt masks "
+          f"{100 * fg:.1f}% foreground")
+    print(f"# video 480x854, num_frames {VIDEO_CACHE}, {VIDEO_FRAMES} frames "
+          f"(a smoke reading: frames/s over frames 2-{VIDEO_FRAMES}, buckets "
+          f"2-8 with each bucket's first call, host clock closed by each "
+          f"frame's fetch): device cache {dev_fps:.3f} frames/s, peak "
+          f"memory {dev_gb:.2f} GB; host cache {host_fps:.3f} frames/s, "
+          f"peak memory {host_gb:.2f} GB [{label}]")
+    for name, fps in (("device", dev_fps), ("host", host_fps)):
+        call_ms = 1e3 * statistics.mean(model_s[name][1:])
+        print(f"# video {name} cache, frames 2-{VIDEO_FRAMES}: "
+              f"{1e3 / fps:.2f} ms per frame, of which "
+              f"{'paint_frame' if name == 'device' else 'run_one_image'} "
+              f"(upload, forward, fetch) {call_ms:.2f} ms and the rest of "
+              f"the loop (PIL resize, "
+              f"{'' if name == 'device' else 'the ensemble batch build, '}"
+              f"output resize, composite) {1e3 / fps - call_ms:.2f} ms "
+              f"[{label}]")
+    # the steady rate: RATE_FRAMES new frames through each path, read over
+    # the frames after RATE_WARM (all at bucket 8)
+    del eng.run_one_image
+    rate_frames = [_smooth_u8(rng, VIDEO_HW) for _ in range(RATE_FRAMES)]
+    rate_k1 = 0
+    for name, run in (("device", engine.run_video_frames_device),
+                      ("host", engine.run_video_frames)):
+        comps, k1, _, gb, stamps = _video_pass(run, eng, rate_frames, img2,
+                                               tgt2)
+        check(len(comps) == RATE_FRAMES and k1 == cfg.depth * RATE_FRAMES,
+              f"{name} rate drive: {len(comps)} frames, K1 {k1}")
+        check(all(c.shape == VIDEO_HW + (3,) for c in comps),
+              f"{name} rate drive composites")
+        steady = np.diff(stamps[RATE_WARM - 1:])
+        p50, p90 = _percentiles(steady)
+        print(f"# video {name} cache, steady rate: frames "
+              f"{RATE_WARM + 1}-{RATE_FRAMES} at bucket 8 "
+              f"({len(steady)} frames) {len(steady) / steady.sum():.3f} "
+              f"frames/s, per frame p50 {p50:.2f} ms, p90 {p90:.2f} ms, "
+              f"min {steady.min() * 1e3:.2f}, max {steady.max() * 1e3:.2f}; "
+              f"peak memory {gb:.2f} GB; K1 launches {k1} [{label}]")
+        rate_k1 += k1
+    # one bucket-8 frame of the device cache under the profiler
+    ve = engine.VideoEngine(eng, VIDEO_CACHE, img2, tgt2)
+    queries = [np.array(Image.fromarray(f).resize((res, res)))
+               for f in frames]
+    for q in queries[:4]:
+        ve.paint_frame(q)
+    profile_device(lambda: ve.paint_frame(queries[4]),
+                   "one device-cache video frame (bucket 8)", label)
+    return dev_k1 + host_k1 + rate_k1, dev_fps, host_fps
+
+
+def phase_cli(label):
+    """``seggpt_cli.main`` in process through ``sys.argv``, image mode
+    with 2 prompts (bucket 2), ``--quant none`` then ``int8-fused``, on
+    the card by default. Returns (K1, K5) launches over both runs."""
+    import os
+    import tempfile
+    from PIL import Image
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import seggpt_cli
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.kernels import int8_mlp as k5
+    model_name = seggpt_cli.get_args_parser().get_default("model")
+    depth = configs.get_config(model_name).depth
+    k1_total = k5_total = 0
+    with tempfile.TemporaryDirectory() as root:
+        query, p1, p2, t1, t2 = _write_pngs(
+            root, ["query", "p1", "p2", "t1", "t2"], (480, 640), seed=11)
+        for quant in ("none", "int8-fused"):
+            out_dir = os.path.join(root, f"out_{quant}")
+            argv = sys.argv
+            sys.argv = ["seggpt_cli", "--input_image", query,
+                        "--prompt_image", p1, p2, "--prompt_target", t1, t2,
+                        "--output_dir", out_dir, "--quant", quant]
+            fr.flash_attention_relpos.launches = 0
+            k5.int8_mlp.launches = 0
+            t0 = time.perf_counter()
+            try:
+                seggpt_cli.main()
+            finally:
+                sys.argv = argv
+            wall = time.perf_counter() - t0
+            k1, k5n = fr.flash_attention_relpos.launches, k5.int8_mlp.launches
+            out = os.path.join(out_dir, "output_query.png")
+            check(os.path.exists(out), f"CLI --quant {quant} wrote no {out}")
+            png = Image.open(out)
+            check(png.size == (640, 480) and png.mode == "RGB",
+                  f"CLI output {png.size} {png.mode}")
+            want5 = depth if quant == "int8-fused" else 0
+            print(f"# seggpt_cli --quant {quant}: K1 launches {k1}, K5 "
+                  f"launches {k5n} (expected {depth}, {want5}); "
+                  f"output_query.png {png.size}; {wall:.2f} s wall with "
+                  f"the model's build [{label}]")
+            check(k1 == depth and k5n == want5,
+                  f"CLI --quant {quant}: K1 {k1}, K5 {k5n}")
+            k1_total += k1
+            k5_total += k5n
+    return k1_total, k5_total
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_endpoint(label):
+    """``demo_app.serve`` (SegGPT ViT-L, ``--max_batch 8``, ``--device
+    cuda``) in a thread: /paint requests one at a time, a wave of 8
+    concurrent identical /paint requests (micro-batched), CLIENTS clients
+    in a closed loop, one /paint_video of 4 frames with the first as the
+    prompt. Returns K1's launches over all of them."""
+    import base64
+    import io
+    import threading
+    import types
+    import urllib.request
+    from PIL import Image
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import demo_app
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    args = demo_app.get_args_parser().parse_args(
+        ["serve", "--max_batch", "8", "--device", "cuda", "--port",
+         str(_free_port())])
+    depth = configs.get_config(args.model).depth
+    ready, stop = threading.Event(), threading.Event()
+    server = threading.Thread(target=demo_app.serve,
+                              args=(args, ready, stop), daemon=True)
+    server.start()
+    check(ready.wait(600), "the endpoint did not come up")
+
+    def b64(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def png(data):
+        return np.asarray(Image.open(io.BytesIO(base64.b64decode(data))))
+
+    def post(route, req):
+        r = urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{args.port}{route}", json.dumps(req).encode(),
+            {"Content-Type": "application/json"}), timeout=600)
+        return json.loads(r.read())
+
+    rng = np.random.RandomState(13)
+    req = {"image": b64(_smooth_u8(rng, (480, 640))),
+           "prompt_image": b64(_smooth_u8(rng, (480, 640))),
+           "prompt_target": b64(np.repeat(
+               (_smooth_u8(rng, (480, 640))[..., :1] > 127).astype(np.uint8)
+               * 255, 3, axis=-1))}
+
+    # the server's first request, then the same request again, one at a
+    # time
+    fr.flash_attention_relpos.launches = 0
+    latency = []
+    for _ in range(2 + SINGLE_REQUESTS):
+        t0 = time.perf_counter()
+        answer = png(post("/paint", req)["output"])
+        latency.append(time.perf_counter() - t0)
+        if len(latency) == 1:
+            single = answer
+        check(np.array_equal(answer, single),
+              "a repeated single /paint gave another answer")
+    k1_single = fr.flash_attention_relpos.launches
+    check(single.shape == (480, 640, 3), f"/paint gave {single.shape}")
+    check(k1_single == (2 + SINGLE_REQUESTS) * depth,
+          f"{2 + SINGLE_REQUESTS} /paint launched K1 {k1_single} times")
+    p50, p90 = _percentiles(latency[2:])
+    # the host pieces of one request, timed alone on the same images
+    t0 = time.perf_counter()
+    decoded = [demo_app._decode_b64_image(req[k]) for k in
+               ("image", "prompt_image", "prompt_target")]
+    t1 = time.perf_counter()
+    demo_app._prep_query(types.SimpleNamespace(cfg=configs.get_config(
+        args.model)), *decoded)
+    t2 = time.perf_counter()
+    demo_app._encode_b64_image(single)
+    t3 = time.perf_counter()
+    print(f"# /paint single request: first {latency[0] * 1e3:.2f} ms, "
+          f"second {latency[1] * 1e3:.2f} ms; the {SINGLE_REQUESTS} after "
+          f"them p50 {p50:.2f} ms, p90 {p90:.2f} ms, min "
+          f"{min(latency[2:]) * 1e3:.2f}, max {max(latency[2:]) * 1e3:.2f}; "
+          f"host pieces alone: decode "
+          f"3 PNGs {(t1 - t0) * 1e3:.2f} ms, resize + normalize "
+          f"{(t2 - t1) * 1e3:.2f} ms, encode the answer "
+          f"{(t3 - t2) * 1e3:.2f} ms [{label}]")
+
+    n = 8
+    results = [None] * n
+
+    def one(i):
+        try:
+            results[i] = post("/paint", req)["output"]
+        except Exception as e:  # noqa: BLE001 — reported by the check
+            results[i] = e
+
+    fr.flash_attention_relpos.launches = 0
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wave = time.perf_counter() - t0
+    k1_wave = fr.flash_attention_relpos.launches
+    for res in results:
+        check(isinstance(res, str), f"a concurrent /paint failed: {res}")
+    worst = max(int(np.abs(png(r).astype(np.int32) - single).max())
+                for r in results)
+    batches = k1_wave / depth
+    print(f"# /paint: {n} concurrent "
+          f"identical requests in {wave * 1e3:.2f} ms (a smoke reading, one "
+          f"wave: {n / wave:.3f} requests/s) as {batches:g} run_queries "
+          f"batches (K1 launches "
+          f"{k1_wave}); largest difference from the single answer {worst} "
+          f"steps (bound {COMPOSITE_STEPS}) [{label}]")
+    check(k1_wave % depth == 0 and batches < n,
+          f"the wave launched K1 {k1_wave} times: {batches} batches for "
+          f"{n} requests")
+    check(worst <= COMPOSITE_STEPS,
+          f"a batched answer is {worst} steps from the single one")
+
+    # CLIENTS clients, each sending its next request when the last is
+    # answered
+    answers, waits = [], []
+
+    def client():
+        for _ in range(REQUESTS_PER_CLIENT):
+            t = time.perf_counter()
+            try:
+                out = post("/paint", req)["output"]
+            except Exception as e:  # noqa: BLE001 — reported by the check
+                out = e
+            waits.append(time.perf_counter() - t)
+            answers.append(out)
+
+    fr.flash_attention_relpos.launches = 0
+    threads = [threading.Thread(target=client) for _ in range(CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    loop_s = time.perf_counter() - t0
+    k1_loop = fr.flash_attention_relpos.launches
+    total = CLIENTS * REQUESTS_PER_CLIENT
+    check(len(answers) == total and all(isinstance(a, str) for a in answers),
+          f"closed loop: {len(answers)} answers of {total}, failures "
+          f"{[a for a in answers if not isinstance(a, str)][:2]}")
+    loop_worst = max(int(np.abs(png(a).astype(np.int32) - single).max())
+                     for a in answers)
+    loop_batches = k1_loop / depth
+    p50, p90 = _percentiles(waits)
+    print(f"# /paint closed loop: {CLIENTS} clients x "
+          f"{REQUESTS_PER_CLIENT} requests in {loop_s * 1e3:.2f} ms, "
+          f"{total / loop_s:.3f} requests/s, latency p50 {p50:.2f} ms, p90 "
+          f"{p90:.2f} ms, {loop_batches:g} run_queries batches (mean "
+          f"{total / loop_batches:.2f} requests each); largest difference "
+          f"from the single answer {loop_worst} steps (bound "
+          f"{COMPOSITE_STEPS}) [{label}]")
+    check(k1_loop % depth == 0 and loop_batches < total,
+          f"the closed loop launched K1 {k1_loop} times for {total} requests")
+    check(loop_worst <= COMPOSITE_STEPS,
+          f"a closed-loop answer is {loop_worst} steps from the single one")
+
+    fr.flash_attention_relpos.launches = 0
+    vreq = {"frames": [b64(_smooth_u8(rng, VIDEO_HW)) for _ in range(4)],
+            "prompt_target": req["prompt_target"], "num_frames": 4}
+    t0 = time.perf_counter()
+    frames = post("/paint_video", vreq)["frames"]
+    video_s = time.perf_counter() - t0
+    k1_video = fr.flash_attention_relpos.launches
+    print(f"# /paint_video: 4 frames, the first as the prompt: {len(frames)} "
+          f"painted in {video_s * 1e3:.2f} ms, K1 launches {k1_video} "
+          f"[{label}]")
+    check(len(frames) == 3 and all(png(f).shape == VIDEO_HW + (3,)
+                                   for f in frames),
+          f"/paint_video gave {len(frames)} frames")
+    check(k1_video == 3 * depth, f"/paint_video launched K1 {k1_video}")
+    # the server's model must not stay resident through the later phases
+    # (its request handler class holds it in a reference cycle)
+    stop.set()
+    server.join(120)
+    check(not server.is_alive(), "the endpoint did not stop")
+    gc.collect()
+    return k1_single + k1_wave + k1_loop + k1_video
+
+
+def phase_painter_task(label):
+    """``painter_task_inference`` on Painter ViT-L (bf16, random weights),
+    task depth (channel mean, x10000, bilinear), on synthetic PNGs."""
+    import tempfile
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import engine
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    cfg = configs.get_config(PAINTER, dtype="bfloat16")
+    eng = engine.InContextModel(cfg, _seeded_model(cfg, 3), device="cuda")
+    with tempfile.TemporaryDirectory() as root:
+        query, p_img, p_tgt = _write_pngs(root, ["query", "img2", "tgt2"],
+                                          (480, 640), seed=17)
+        fr.flash_attention_relpos.launches = 0
+        t0 = time.perf_counter()
+        depth_map = engine.painter_task_inference(
+            eng, query, p_img, p_tgt, "depth", res=cfg.img_size[1])
+        wall = time.perf_counter() - t0
+        k1 = fr.flash_attention_relpos.launches
+    print(f"# painter_task_inference depth: shape {depth_map.shape}, range "
+          f"[{depth_map.min():.2f}, {depth_map.max():.2f}], K1 launches {k1}, "
+          f"{wall * 1e3:.2f} ms [{label}]")
+    check(depth_map.shape == (480, 640), f"depth map {depth_map.shape}")
+    check(np.isfinite(depth_map).all() and depth_map.min() >= 0
+          and depth_map.max() <= 10000, "depth map outside [0, 10000]")
+    check(k1 == cfg.depth, f"the Painter task launched K1 {k1} times")
+    return k1
+
+
 PAINTER = "painter_vit_large_patch16_input896x448_win_dec64_8glb_sl1"
 # full-model gradients, K1/K2 vs plain attention. fp32: the loss to 1e-5
 # relative and each gradient to 1e-3 x its own max abs (24 blocks of fp32
@@ -1108,6 +1607,10 @@ def main():
     print("# serving in bf16 / int8 / int8-fused: pairs/s (b8 ensemble) "
           + " / ".join(f"{t[0]:.3f}" for t in all_times) + "; b1 p50 ms "
           + " / ".join(f"{t[1]:.2f}" for t in all_times) + f" [{label}]")
+    video_k1, _, _ = timed("video drive", phase_video, model, label)
+    cli_k1, cli_k5 = timed("CLI drive", phase_cli, label)
+    endpoint_k1 = timed("endpoint drive", phase_endpoint, label)
+    painter_k1 = timed("Painter task drive", phase_painter_task, label)
     del model
     torch.cuda.empty_cache()
     timed("gradient check", phase_grad_check, label)
@@ -1115,17 +1618,21 @@ def main():
         "training drive", phase_train_cli, label)
     timed("remat full", phase_remat_full, result)
     timed("training times", phase_train_times, result, label)
-    print(f"# K1 launches: serving main path {serve_k1}, training main path "
-          f"{train_k1}; K2 launches: training main path {train_k2}; K3 / K4 "
-          f"launches: training main path {train_k3} / {train_k4}; K5 "
-          f"launches: int8-fused serving path {serve_k5}")
+    infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1
+    print(f"# K1 launches: serving main path {serve_k1}, video {video_k1}, "
+          f"CLI {cli_k1}, endpoint {endpoint_k1}, Painter task {painter_k1}, "
+          f"training main path {train_k1}; K2 launches: training main path "
+          f"{train_k2}; K3 / K4 launches: training main path {train_k3} / "
+          f"{train_k4}; K5 launches: int8-fused serving path {serve_k5}, "
+          f"CLI --quant int8-fused {cli_k5}")
     tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
                 TAIL_MAIN_SHAPE and r["K3"]["dtype"] == str(torch.bfloat16))
     k5_row = next(r for r in k5_rows if r["m"] == K5_MAIN_M)
     kernels = [
         _kernel_entry("flash_relpos_fwd",
                       "painter_tpu/kernels/flash_relpos.py:399",
-                      serve_k1 + train_k1, _row(k1_rows, K1_MAIN_SHAPE)),
+                      serve_k1 + infer_k1 + train_k1,
+                      _row(k1_rows, K1_MAIN_SHAPE)),
         _kernel_entry("flash_relpos_bwd",
                       "painter_tpu/kernels/flash_relpos.py:438",
                       train_k2, _row(k2_rows, K2_MAIN_SHAPE)),
@@ -1136,7 +1643,7 @@ def main():
                       "painter_tpu/kernels/decoder_head.py:304", train_k4,
                       tail["K4"]),
         _kernel_entry("int8_mlp", "painter_tpu/kernels/int8_mlp.py:87",
-                      serve_k5, k5_row)]
+                      serve_k5 + cli_k5, k5_row)]
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,16 +10,24 @@ Behavioral contract from ``SegGPT/SegGPT_inference/seggpt_engine.py`` and
 - a bottom-half patch mask; several prompts form a prompt batch with the
   feature ensemble (``merge_between_batch = 0 iff num_prompts > 1``);
 - the output is the painted bottom half, de-normalized, then scaled and
-  resized per task (:data:`TASK_SPECS`).
+  resized per task (:data:`TASK_SPECS`);
+- video: a rolling cache of recent frames and their binarized
+  predictions serves as extra prompts, so each frame's painting depends
+  on the frames before it (``seggpt_engine.py:106-181``).
 
 The host normalizes and resizes in numpy; the model, the bottom-half
-decode and the de-normalization run on the device.
+decode and the de-normalization run on the device. :class:`VideoEngine`
+keeps its prompt cache on the device and runs the normalize, stitch,
+binarization and cache insert there too. The file drivers
+(:func:`inference_image`, :func:`inference_video`,
+:func:`painter_task_inference`) read and write with PIL (and cv2 for
+video, imported only there).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +86,14 @@ def _prompt_bucket(n: int) -> int:
     return b
 
 
+def _ensemble_weights(n: int, nb: int) -> np.ndarray:
+    """Feature-ensemble weights of ``n`` real rows in a bucket of ``nb``:
+    1/n on each real row, 0 on the pads (== the mean over the real rows)."""
+    w = np.zeros((nb,), np.float32)
+    w[:n] = np.float32(1.0 / n)
+    return w
+
+
 def _np_normalize(x: np.ndarray) -> np.ndarray:
     """Host-side ImageNet normalize (== ops/image.normalize)."""
     return ((np.asarray(x, np.float32) - np.asarray(IMAGENET_MEAN,
@@ -89,6 +105,11 @@ def _np_normalize(x: np.ndarray) -> np.ndarray:
 #: gemms (w8a8, ``ops.quant.quantize_model``), "int8-fused" also runs each
 #: MLP through the fused int8 kernel
 QUANT_MODES = ("none", "int8", "int8-fused")
+
+#: attention routes of the serving forward: "kernel" runs the CUDA
+#: attention kernel on the card (its plain version on the CPU), "plain"
+#: the plain attention on any device (for a grid the kernel refuses)
+ATTN_IMPLS = ("kernel", "plain")
 
 
 def prepare_model(model: model_lib.InContextViT,
@@ -108,13 +129,18 @@ class InContextModel:
 
     ``device`` defaults to ``cuda`` and raises when there is none; pass
     ``device="cpu"`` to run on the host. ``quant`` serves an int8 copy of
-    the model (:data:`QUANT_MODES`, :func:`prepare_model`).
+    the model (:data:`QUANT_MODES`, :func:`prepare_model`); ``attn_impl``
+    picks the attention route of every forward (:data:`ATTN_IMPLS`).
     """
 
     def __init__(self, cfg: ModelConfig, model: model_lib.InContextViT,
-                 seg_type: str = "semantic", pad_prompts: bool = True,
-                 device=None, quant: str = "none"):
+                 attn_impl: str = "kernel", seg_type: str = "semantic",
+                 pad_prompts: bool = True, device=None, quant: str = "none"):
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         self.cfg = cfg
+        self.attn_impl = attn_impl
         self.device = resolve_device(device)
         self.model = prepare_model(model.to(self.device), quant).eval()
         self.seg_type = seg_type  # 'semantic' | 'instance' (SegGPT CLI)
@@ -145,11 +171,8 @@ class InContextModel:
         weights = None
         if self.pad_prompts and n > 1:
             nb = _prompt_bucket(n)
-            # 1/n on real prompts, 0 on padding; pads repeat sample 0 so
-            # every intermediate stays finite
-            w = np.zeros((nb,), np.float32)
-            w[:n] = np.float32(1.0 / n)
-            weights = self._put(w)
+            # pads repeat sample 0 so every intermediate stays finite
+            weights = self._put(_ensemble_weights(n, nb))
             if nb != n:
                 img = np.concatenate(
                     [img, np.repeat(img[:1], nb - n, axis=0)])
@@ -163,7 +186,7 @@ class InContextModel:
             self.model, self._put(np.asarray(img, np.float32)),
             self._put(np.asarray(tgt, np.float32)), mask,
             seg_type=self._seg_type(n), merge_between_batch=merge,
-            ensemble_weights=weights)
+            ensemble_weights=weights, attn_impl=self.attn_impl)
         return image_ops.denormalize(out).cpu().numpy()
 
     @torch.inference_mode()
@@ -182,7 +205,7 @@ class InContextModel:
         out = model_lib.predict_query_half_batch(
             self.model, self._put(np.asarray(imgs, np.float32)),
             self._put(np.asarray(tgts, np.float32)), mask,
-            seg_type=self._seg_type(n))
+            seg_type=self._seg_type(n), attn_impl=self.attn_impl)
         out = image_ops.denormalize(out).cpu().numpy()
         return out[:real_count if real_count else n]
 
@@ -224,7 +247,8 @@ class InContextModel:
             (imgs.shape[2] // self.cfg.patch_size)
         mask = image_ops.bottom_half_mask(n, num_patches, self.device)
         out = model_lib.predict_query_half_batch(
-            self.model, imgs, tgts, mask, seg_type=self._seg_type(n))
+            self.model, imgs, tgts, mask, seg_type=self._seg_type(n),
+            attn_impl=self.attn_impl)
         out = image_ops.denormalize(out)
         if np.dtype(out_dtype) == np.uint8:
             out = image_ops.to_uint8_255(out)
@@ -262,3 +286,274 @@ def build_query_batch(queries: Sequence[np.ndarray], img2: np.ndarray,
             for q in queries]
     return np.stack(imgs), np.broadcast_to(
         tgt, (len(imgs),) + tgt.shape).copy()
+
+
+# ---------------------------------------------------------------------------
+# File drivers (PIL / cv2 I/O of the reference protocols)
+# ---------------------------------------------------------------------------
+
+def _load_rgb(path: str, res: int, nearest: bool = False) -> np.ndarray:
+    """Image file -> (res, res, 3) [0,1] float64; PIL's default resample,
+    NEAREST for SegGPT's targets."""
+    from PIL import Image
+    img = Image.open(path).convert("RGB")
+    img = img.resize((res, res), Image.NEAREST if nearest else None)
+    return np.array(img) / 255.0
+
+
+def _composite(input_image: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """The reference's blend of the x255 mask over the input
+    (``seggpt_engine.py:100``)."""
+    return (input_image * (0.6 * out / 255 + 0.4)).astype(np.uint8)
+
+
+def inference_image(model: InContextModel, img_path: str,
+                    img2_paths: Sequence[str], tgt2_paths: Sequence[str],
+                    out_path: str, res: int = 448) -> np.ndarray:
+    """SegGPT single-image driver (``seggpt_engine.py:56-103``): returns
+    the x255 output at the input's size and writes the composite PNG to
+    ``out_path`` (when given)."""
+    from PIL import Image
+    image = Image.open(img_path).convert("RGB")
+    input_image = np.array(image)
+    size = image.size
+    query = np.array(image.resize((res, res))) / 255.0
+
+    prompts = [(_load_rgb(p, res), _load_rgb(t, res, nearest=True))
+               for p, t in zip(img2_paths, tgt2_paths)]
+    imgs, tgts = build_prompt_batch(query, prompts)
+    output = model.run_one_image(imgs, tgts)
+    output = scale_and_resize(output, size, TASK_SPECS["seggpt"])
+    if out_path:
+        Image.fromarray(_composite(input_image, output)).save(out_path)
+    return output
+
+
+def run_video_frames(model: InContextModel, frames_rgb: Iterable[np.ndarray],
+                     tgt2: np.ndarray, num_frames: int,
+                     img2: Optional[np.ndarray] = None,
+                     res: int = 448) -> Iterator[np.ndarray]:
+    """Rolling-prompt-cache video loop over in-memory uint8 RGB frames,
+    the prompt cache on the host (``seggpt_engine.py:106-181``).
+
+    Each frame's ensemble batch is (img2, tgt2) and the ``num_frames``
+    most recent frames with their binarized predictions, oldest first.
+    With ``img2=None`` the first frame is the prompt image and is not
+    painted. Yields one uint8 RGB composite per painted frame.
+    """
+    from PIL import Image
+
+    frames_cache: List[np.ndarray] = []
+    targets_cache: List[np.ndarray] = []
+    for input_image in frames_rgb:
+        if img2 is None:
+            img2 = np.array(Image.fromarray(input_image)
+                            .resize((res, res))) / 255.0
+            continue
+        image = Image.fromarray(input_image)
+        size = image.size
+        query = np.array(image.resize((res, res))) / 255.0
+
+        prompts = list(zip([img2] + frames_cache, [tgt2] + targets_cache))
+        imgs, tgts = build_prompt_batch(query, prompts)
+        output = model.run_one_image(imgs, tgts)
+
+        if num_frames > 0:
+            frames_cache.append(query)
+            # the reference's math (seggpt_engine.py:52 + :167-171): clip
+            # the x255 output per channel, channel mean, > 128 (128/255 is
+            # not 0.5)
+            binarized = (np.clip(output * 255.0, 0, 255).mean(-1) > 128) \
+                .astype(np.float32)
+            targets_cache.append(np.repeat(binarized[..., None], 3, axis=-1))
+            if len(frames_cache) > num_frames:
+                frames_cache.pop(0)
+                targets_cache.pop(0)
+
+        out = scale_and_resize(output, size, TASK_SPECS["seggpt"])
+        yield _composite(input_image, out)
+
+
+def _binarize(out: torch.Tensor) -> torch.Tensor:
+    """:func:`run_video_frames`' re-prompt mask on the device, bit for
+    bit (``clip(out * 255, 0, 255).mean(-1) > 128``): numpy's float32
+    channel mean sums (c0 + c1) + c2 and divides; a divisor held as a
+    tensor keeps the division a true one (CUDA multiplies by the
+    reciprocal of a Python scalar divisor)."""
+    c = torch.clamp(out * 255.0, 0.0, 255.0)
+    mean = (c[..., 0] + c[..., 1] + c[..., 2]) / torch.tensor(
+        3.0, dtype=c.dtype, device=c.device)
+    return mean > 128
+
+
+class VideoEngine:
+    """Device-resident rolling-prompt-cache video engine.
+
+    :func:`run_video_frames` rebuilds and uploads the whole (bucket, 2R,
+    R, 3) fp32 ensemble batch for every frame. This engine keeps the
+    normalized prompt halves on the device as (bucket, R, R, 3) fp32
+    tensors and uploads only each frame's query (raw uint8 or [0,1]
+    float); the /255, normalize, stitch, forward, de-normalize, the
+    re-prompt binarization and the cache insert run on the device.
+
+    Semantics of :func:`run_video_frames`: row 0 is the fixed (img2,
+    tgt2) prompt; rows 1..num_frames hold the most recent frames and
+    their binarized predictions. Once the cache is full a new frame
+    overwrites the oldest row in place (circular, FIFO); the weighted
+    feature ensemble does not depend on the row order but for fp32
+    summation order. Row counts pad to power-of-two buckets by repeating
+    row 0 at ensemble weight 0, so pad content cannot matter.
+    """
+
+    @torch.inference_mode()
+    def __init__(self, model: InContextModel, num_frames: int,
+                 img2: np.ndarray, tgt2: np.ndarray):
+        self.model = model
+        self.num_frames = num_frames
+        self._imgs_top = model._put(_np_normalize(img2))[None]
+        self._tgts_half = model._put(_np_normalize(tgt2))[None]
+        self._n_real = 1
+        self._wrap = 0  # circular insert pointer once the cache is full
+
+    @property
+    def bucket(self) -> int:
+        """Rows of the cache tensors (a power of two)."""
+        return self._imgs_top.shape[0]
+
+    @torch.inference_mode()
+    def paint_frame(self, query: np.ndarray,
+                    out_dtype=np.float32) -> np.ndarray:
+        """(R, R, 3) query -> painted (R, R, 3).
+
+        ``query`` is [0,1] float or raw uint8 pixels (the /255 runs on the
+        device, bit-exact vs the host divide). ``out_dtype=np.uint8``
+        returns the 0-255 write-path values (:func:`ops.image.to_uint8_255`)
+        instead of the [0,1] float32 default.
+        """
+        model = self.model
+        n, nb = self._n_real, self.bucket
+        weights = model._put(_ensemble_weights(n, nb)) if n > 1 else None
+        q = model._put(query if query.dtype == np.uint8
+                       else np.asarray(query, np.float32))
+        if q.dtype == torch.uint8:
+            q = image_ops.from_uint8(q)
+        q = image_ops.normalize(q)
+        imgs = torch.cat([self._imgs_top, q.expand(self._imgs_top.shape)],
+                         dim=1)
+        tgts = torch.cat([self._tgts_half, self._tgts_half], dim=1)
+        num_patches = (imgs.shape[1] // model.cfg.patch_size) * \
+            (imgs.shape[2] // model.cfg.patch_size)
+        mask = image_ops.bottom_half_mask(nb, num_patches, model.device)
+        out = model_lib.predict_query_half(
+            model.model, imgs, tgts, mask, seg_type=model._seg_type(nb),
+            merge_between_batch=0 if n > 1 else -1,
+            ensemble_weights=weights, attn_impl=model.attn_impl)
+        out = image_ops.denormalize(out)
+
+        if self.num_frames > 0:
+            if n < 1 + self.num_frames:
+                pos = n
+                self._n_real = n + 1
+                if pos >= nb:  # grow to the next bucket, pads = row 0
+                    grow = _prompt_bucket(pos + 1) - nb
+                    self._imgs_top = torch.cat(
+                        [self._imgs_top,
+                         self._imgs_top[:1].expand(grow, -1, -1, -1)])
+                    self._tgts_half = torch.cat(
+                        [self._tgts_half,
+                         self._tgts_half[:1].expand(grow, -1, -1, -1)])
+            else:  # full: overwrite the oldest cached frame
+                pos = 1 + self._wrap
+                self._wrap = (self._wrap + 1) % self.num_frames
+            self._imgs_top[pos] = q
+            self._tgts_half[pos] = image_ops.normalize(
+                _binarize(out).float()[..., None].expand(-1, -1, 3))
+        if np.dtype(out_dtype) == np.uint8:
+            out = image_ops.to_uint8_255(out)
+        return out.cpu().numpy()
+
+
+def run_video_frames_device(model: InContextModel,
+                            frames_rgb: Iterable[np.ndarray],
+                            tgt2: np.ndarray, num_frames: int,
+                            img2: Optional[np.ndarray] = None,
+                            res: int = 448) -> Iterator[np.ndarray]:
+    """:func:`run_video_frames` on a :class:`VideoEngine` (the prompt
+    cache on the device); yields the same uint8 composites."""
+    from PIL import Image
+
+    engine = None
+    for input_image in frames_rgb:
+        if img2 is None:
+            img2 = np.array(Image.fromarray(input_image)
+                            .resize((res, res))) / 255.0
+            continue
+        if engine is None:
+            engine = VideoEngine(model, num_frames, img2, tgt2)
+        image = Image.fromarray(input_image)
+        size = image.size
+        output = engine.paint_frame(np.array(image.resize((res, res))))
+        out = scale_and_resize(output, size, TASK_SPECS["seggpt"])
+        yield _composite(input_image, out)
+
+
+def inference_video(model: InContextModel, vid_path: str, num_frames: int,
+                    img2_paths: Optional[Sequence[str]],
+                    tgt2_paths: Sequence[str], out_path: str,
+                    res: int = 448, cache_impl: str = "device") -> int:
+    """SegGPT video driver with the rolling prompt cache
+    (``seggpt_engine.py:106-181``): reads ``vid_path`` with cv2 and writes
+    the composites as mp4v to ``out_path``; returns the frames written.
+    ``cache_impl`` "device" runs :class:`VideoEngine`, "host"
+    :func:`run_video_frames`."""
+    import cv2
+
+    if cache_impl not in ("device", "host"):
+        raise ValueError(f"cache_impl must be 'device' or 'host', got "
+                         f"{cache_impl!r}")
+    cap = cv2.VideoCapture(vid_path)
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    writer = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             fps, (width, height), True)
+
+    def frames():
+        while True:
+            ret, frame = cap.read()
+            if not ret:
+                return
+            yield np.ascontiguousarray(frame[:, :, ::-1])  # BGR -> RGB
+
+    img2 = None if img2_paths is None else _load_rgb(img2_paths[0], res)
+    tgt2 = _load_rgb(tgt2_paths[0], res, nearest=True)
+    runner = run_video_frames_device if cache_impl == "device" \
+        else run_video_frames
+    n_written = 0
+    try:
+        for composite in runner(model, frames(), tgt2, num_frames,
+                                img2=img2, res=res):
+            writer.write(np.ascontiguousarray(composite[:, :, ::-1]))
+            n_written += 1
+    finally:
+        writer.release()
+        cap.release()
+    return n_written
+
+
+def painter_task_inference(model: InContextModel, img_path: str,
+                           prompt_img_path: str, prompt_tgt_path: str,
+                           task: str, res: int = 448) -> np.ndarray:
+    """Painter per-task driver (the fixed-prompt ``painter_inference_*.py``
+    loops): the task's output at the query's size (:data:`TASK_SPECS`)."""
+    from PIL import Image
+    image = Image.open(img_path).convert("RGB")
+    size = image.size
+    query = np.array(image.resize((res, res))) / 255.0
+    # Painter resizes the prompt target with PIL's default (bicubic), not
+    # SegGPT's NEAREST (painter_inference_segm.py:138-141)
+    img2 = _load_rgb(prompt_img_path, res)
+    tgt2 = _load_rgb(prompt_tgt_path, res)
+    imgs, tgts = build_prompt_batch(query, [(img2, tgt2)])
+    output = model.run_one_image(imgs, tgts)
+    return scale_and_resize(output, size, TASK_SPECS[task])

@@ -144,7 +144,9 @@ def test_scale_and_resize_matches_jax(task):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module imports with ``jax`` and ``painter_tpu`` blocked
     as whole module names (``painter_tpu`` is a prefix of the port's own
-    name, so a substring check would be wrong)."""
+    name, so a substring check would be wrong); importing them loads
+    neither ``cv2`` (the video-file driver imports it when it runs) nor
+    ``gradio`` (the demo UI's)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -157,11 +159,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
         "       or m.startswith(('jax.', 'painter_tpu.'))]\n"
         "assert not bad, bad\n"
+        "assert 'cv2' not in sys.modules and 'gradio' not in sys.modules\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 31
+    assert int(res.stdout.strip()) >= 33
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
@@ -172,3 +175,6 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     model = tm.build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         te.InContextModel(cfg, model)
+    from painter_tpu_torch.infer import seggpt_cli
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        seggpt_cli.prepare_model(None, "tiny_test", "semantic")
