@@ -15,7 +15,11 @@ cache's circular insert reorders the rows) and their steady rates over 56
 more, ``seggpt_cli.main`` in image mode (bf16 and int8-fused), the HTTP
 endpoint (``demo_app.serve``: single /paint requests, 8 concurrent ones
 micro-batched, 8 clients in a closed loop, one /paint_video) and Painter
-ViT-L's depth task through ``painter_task_inference``; and training
+ViT-L's depth task through ``painter_task_inference``; Painter ViT-L's
+eval protocols through ``painter_tpu_torch.evals`` on synthetic data
+(ADE20K at 896x448, COCO panoptic at 1120x560, pose, and ADE20K under
+``--quant int8-fused``), with the decoders on the card held to the same
+decoders on the CPU; and training
 Painter ViT-L 896x448 (bf16 compute, fp32 params) with the fused decoder
 tail through ``painter_tpu_torch.train.train.main`` on a synthetic
 dataset, after
@@ -538,16 +542,20 @@ def phase_k5(label):
     return rows
 
 
+def _noisy_rel_pos(model, gen):
+    """Random rel-pos tables: init zeroes them, which would leave K1's
+    bias path untested."""
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.attn.rel_pos_h.normal_(0.0, 0.1, generator=gen)
+            blk.attn.rel_pos_w.normal_(0.0, 0.1, generator=gen)
+
+
 def _seeded_model(cfg, seed):
     from painter_tpu_torch.models import incontext_vit as tm
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = tm.build_model(cfg, gen, device="cuda")
-    with torch.no_grad():
-        # init zeroes the rel-pos tables, which would leave K1's bias
-        # path untested
-        for blk in model.blocks:
-            blk.attn.rel_pos_h.normal_(0.0, 0.1, generator=gen)
-            blk.attn.rel_pos_w.normal_(0.0, 0.1, generator=gen)
+    _noisy_rel_pos(model, gen)
     return model
 
 
@@ -1293,6 +1301,297 @@ def phase_painter_task(label):
 
 
 PAINTER = "painter_vit_large_patch16_input896x448_win_dec64_8glb_sl1"
+# the eval drive (Painter's published protocols on synthetic data made by
+# the port's rehearsal generators): ADE20K images at their usual 512x683,
+# COCO panoptic at 480x640 painted at 560 (1120x560), pose crops and their
+# flips; every pipeline at --batch_size 8
+EVAL_BATCH, ADE_IMAGES, PANO_IMAGES, POSE_CROPS = 8, 16, 8, 8
+# rates come from a steady window: the checked call of each pipeline (the
+# first at its shape) stays off the clock, and this many calls more over
+# the same images are timed
+EVAL_REPS = 3
+# painted uint8 PNGs, K1 against plain attention: FWD_BF16_TOL on the
+# painted [0,1] scale is this many uint8 steps
+EVAL_PNG_STEPS = round(FWD_BF16_TOL * 255)
+# the card-vs-CPU decode runs on this centre crop of the first painted
+# panoptic PNGs: the CPU side of the 6400-color decode at 480x640 would
+# take minutes
+DECODE_CROP = (120, 160)
+# decayed NMS scores, card against CPU: ``exp`` may round the last bit
+# differently on the two devices
+NMS_RTOL = 1e-6
+
+
+def _pngs(paths):
+    from PIL import Image
+    return [np.asarray(Image.open(p), np.int32) for p in paths]
+
+
+def _decoders_card_vs_cpu(ade_png, inst_png, sem_png):
+    """The eval stack's device decoders on the card and on the CPU, on
+    painted PNGs of this run: indices, masks and classes equal, decayed
+    NMS scores to NMS_RTOL."""
+    from painter_tpu_torch.evals import instseg, run_panoptic
+    from painter_tpu_torch.ops import nms, palette
+    h, w = DECODE_CROP
+    y0, x0 = (inst_png.shape[0] - h) // 2, (inst_png.shape[1] - w) // 2
+    inst = inst_png[y0:y0 + h, x0:x0 + w].astype(np.float32)
+    sem = sem_png[y0:y0 + h, x0:x0 + w].astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ade_pal = torch.from_numpy(palette.ade20k_palette()).to(dev)
+        sem_pal = torch.from_numpy(
+            palette.coco_semseg_palette().astype(np.float32)).to(dev)
+        dec = instseg.decode_instances(inst, return_device=True, device=dev)
+        masks = dec.pop("masks_dev")
+        out[dev] = {
+            "ade": palette.nearest_color_decode(torch.from_numpy(
+                ade_png.astype(np.float32)).to(dev), ade_pal).cpu().numpy(),
+            "inst": dec, "minmax": instseg.decode_instances_minmax(
+                inst, device=dev),
+            "vote": run_panoptic.vote_classes(
+                masks, torch.from_numpy(sem).to(dev), sem_pal,
+                80).cpu().numpy(),
+            "nms": nms.matrix_nms_scores(
+                masks, torch.ones(len(masks), device=dev),
+                torch.from_numpy(dec["scores"]).to(dev)).cpu().numpy()}
+    card, cpu = out["cuda"], out["cpu"]
+    check(np.array_equal(card["ade"], cpu["ade"]),
+          "nearest_color_decode differs between the card and the CPU")
+    check(np.array_equal(card["inst"]["masks"], cpu["inst"]["masks"]),
+          "decode_instances masks differ between the card and the CPU")
+    for name, a, b in (("decode_instances", card["inst"]["scores"],
+                        cpu["inst"]["scores"]),
+                       ("matrix_nms_scores", card["nms"], cpu["nms"])):
+        rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+        check(rel <= NMS_RTOL, f"{name} scores differ by {rel} relative")
+    for key in ("masks", "scores", "classes"):
+        check(np.array_equal(card["minmax"][key], cpu["minmax"][key]),
+              f"decode_instances_minmax {key} differ")
+    check(np.array_equal(card["vote"], cpu["vote"]),
+          "the panoptic vote differs between the card and the CPU")
+    return (len(card["inst"]["masks"]), len(card["minmax"]["masks"]),
+            float(np.max(np.abs(card["nms"] - cpu["nms"]))))
+
+
+def phase_eval(label):
+    """Painter ViT-L (bf16) through the eval drivers, as
+    ``painter_tpu_torch.evals.rehearsal`` runs them: ADE20K (paint at
+    896x448, palette decode, mIoU), COCO panoptic (instance and semantic
+    paints at 1120x560, the 6400-color instance decode, the class vote,
+    the fusion, PQ), pose (crops and flips, flip test, AP), and ADE20K again
+    with ``--quant int8-fused``. Checks K1's (and K5's) launches per
+    forward, K1's paints against plain attention, and the decoders on the
+    card against the CPU. Returns (K1, K5) launches."""
+    import os
+    import tempfile
+    from painter_tpu_torch.evals import (rehearsal, run_eval, run_panoptic,
+                                         run_pose)
+    from painter_tpu_torch.infer.engine import InContextModel
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.kernels import int8_mlp as k5
+
+    def engine(args):
+        eng = run_eval.build_model(args)
+        _noisy_rel_pos(eng.model,
+                       torch.Generator(device="cuda").manual_seed(11))
+        return eng
+
+    def paint(args, eng, n_images, what):
+        """Paints (the checked call), checks K1 ran once per block per
+        forward; returns the outputs and K1's launches."""
+        fr.flash_attention_relpos.launches = 0
+        outputs = run_eval.paint_predictions(args, eng)
+        k1 = fr.flash_attention_relpos.launches
+        forwards = -(-n_images // EVAL_BATCH)
+        check(len(outputs) == n_images, f"{what}: painted {len(outputs)}")
+        check(k1 == eng.cfg.depth * forwards,
+              f"{what}: K1 launched {k1} times for {forwards} forwards")
+        return outputs, k1
+
+    def steady(fn, n_items, eng=None):
+        """EVAL_REPS more calls of ``fn`` after its checked one: items/s
+        over the window, the slowest and the fastest call's, and, with
+        ``eng``, the share of the window spent inside its batched call
+        (upload, forward, fetch of the painted halves)."""
+        inside = [0.0]
+        if eng is not None:
+            call = eng.run_queries_shared
+
+            def clocked(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return call(*a, **k)
+                finally:
+                    inside[0] += time.perf_counter() - t
+            eng.run_queries_shared = clocked
+        rates, total = [], 0.0
+        try:
+            for _ in range(EVAL_REPS):
+                t0 = time.perf_counter()
+                fn()
+                dt = time.perf_counter() - t0
+                total += dt
+                rates.append(n_items / dt)
+        finally:
+            if eng is not None:
+                del eng.run_queries_shared
+        return {"rate": EVAL_REPS * n_items / total, "lo": min(rates),
+                "hi": max(rates), "engine": inside[0] / total}
+
+    def fmt(r, unit="images/s"):
+        text = (f"{r['rate']:.3f} {unit} (calls {r['lo']:.3f}-"
+                f"{r['hi']:.3f}")
+        if "engine" in r and r["engine"]:
+            text += f"; {100 * r['engine']:.1f}% inside the engine call"
+        return text + ")"
+
+    def paint_steady(args, eng, n_images):
+        return steady(lambda: run_eval.paint_predictions(args, eng),
+                      n_images, eng)
+
+    def against_plain(args, eng, outputs, what):
+        """The first batch painted again with plain attention."""
+        plain = InContextModel(eng.cfg, eng.model, attn_impl="plain",
+                               device="cuda")
+        sub = rehearsal.eval_args(**{**vars(args), "max_images": EVAL_BATCH,
+                                     "output_dir": args.output_dir + "_plain"})
+        fr.flash_attention_relpos.launches = 0
+        ref = run_eval.paint_predictions(sub, plain)
+        check(fr.flash_attention_relpos.launches == 0,
+              f"{what}: plain attention launched K1")
+        worst = max(int(np.abs(a - b).max()) for a, b in zip(
+            _pngs(p for _, p in outputs[:EVAL_BATCH]),
+            _pngs(p for _, p in ref)))
+        check(worst <= EVAL_PNG_STEPS,
+              f"{what}: K1 paints {worst} uint8 steps from plain attention")
+        return worst
+
+    lines = []
+    with tempfile.TemporaryDirectory() as root:
+        # ADE20K at 896x448
+        img_dir, ann_dir, p_img, p_tgt = rehearsal.make_ade20k(
+            os.path.join(root, "ade"), ADE_IMAGES)
+        args = rehearsal.eval_args(
+            task="ade20k_semseg", image_dir=img_dir, gt_dir=ann_dir,
+            prompt_image=p_img, prompt_target=p_tgt, model=PAINTER,
+            batch_size=EVAL_BATCH, output_dir=os.path.join(root, "ade_out"))
+        eng = engine(args)
+        ade_out, k1_ade = paint(args, eng, ADE_IMAGES, "ADE20K")
+        metrics = run_eval.compute_metrics(args, ade_out)
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f"ADE20K metrics {metrics}")
+        ade_steps = against_plain(args, eng, ade_out, "ADE20K")
+        ade_paint = paint_steady(args, eng, ADE_IMAGES)
+        ade_decode = steady(lambda: run_eval.compute_metrics(args, ade_out),
+                            ADE_IMAGES)
+        # where one paint call's time goes: one b8 forward under the profiler
+        one = rehearsal.eval_args(**{**vars(args), "max_images": EVAL_BATCH})
+        ade_busy = profile_device(
+            lambda: run_eval.paint_predictions(one, eng),
+            f"one ADE20K paint call ({EVAL_BATCH} images, 896x448)", label)
+        lines.append(f"ADE20K 896x448: {ADE_IMAGES} images x {EVAL_REPS} "
+                     f"calls, paint {fmt(ade_paint)}, decode + mIoU "
+                     f"{fmt(ade_decode)}, mIoU {metrics['mIoU']:.4f},"
+                     f" K1 {k1_ade}, K1 vs plain {ade_steps} uint8 steps,"
+                     f" device busy share of one paint call {ade_busy}")
+
+        # pose on the same 896x448 model: crops and their flips
+        crops, meta, gt, p_img, p_tgt = rehearsal.make_pose(
+            os.path.join(root, "pose"), POSE_CROPS)
+        pargs = rehearsal.eval_args(
+            task="pose", image_dir=crops, prompt_image=p_img,
+            prompt_target=p_tgt, model=PAINTER, batch_size=EVAL_BATCH,
+            skip_metrics=True, output_dir=os.path.join(root, "pose_out"))
+        _, k1_pose = paint(pargs, eng, 2 * POSE_CROPS, "pose")
+        pose_args = run_pose.get_args_parser().parse_args([
+            "--pred_dir", pargs.output_dir, "--meta_json", meta,
+            "--gt_json", gt, "--flip_test"])
+        res = run_pose.evaluate(pose_args)
+        check(np.isfinite(res["AP"]), f"pose metrics {res}")
+        pose_paint = paint_steady(pargs, eng, 2 * POSE_CROPS)
+        pose_decode = steady(lambda: run_pose.evaluate(pose_args),
+                             2 * POSE_CROPS)
+        lines.append(f"pose 256x192 crops at 896x448: {2 * POSE_CROPS} "
+                     f"crops x {EVAL_REPS} calls, paint "
+                     f"{fmt(pose_paint, 'crops/s')}, "
+                     f"decode + AP (flip test) {fmt(pose_decode, 'crops/s')}"
+                     f", AP {res['AP']:.4f}, K1 {k1_pose}")
+
+        # ADE20K with the fused int8 MLP: the same weights, quantized
+        qargs = rehearsal.eval_args(**{**vars(args), "quant": "int8-fused",
+                                       "output_dir": args.output_dir + "8"})
+        qeng = engine(qargs)
+        k5.int8_mlp.launches = 0
+        q_out, k1_q = paint(qargs, qeng, ADE_IMAGES, "int8-fused")
+        k5_q = k5.int8_mlp.launches
+        check(k5_q == k1_q, f"int8-fused: K5 launched {k5_q} times, K1 "
+              f"{k1_q}")
+        a = np.stack(_pngs(p for _, p in q_out)).astype(np.float64)
+        b = np.stack(_pngs(p for _, p in ade_out)).astype(np.float64)
+        dev8 = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        check(dev8 <= INT8_REL_FRO, f"int8-fused ADE20K paints deviate "
+              f"{dev8} from bf16")
+        q_paint = paint_steady(qargs, qeng, ADE_IMAGES)
+        lines.append(f"ADE20K int8-fused: paint {fmt(q_paint)}, K5 "
+                     f"{k5_q}, K1 {k1_q}, relative Frobenius vs bf16 "
+                     f"{dev8:.4e} (bound {INT8_REL_FRO})")
+        del eng, qeng
+
+        # COCO panoptic at 1120x560
+        (img_dir, gt_dir, gt_json, p_img, p_inst,
+         p_sem) = rehearsal.make_panoptic(os.path.join(root, "pano"),
+                                          PANO_IMAGES)
+        iargs = rehearsal.eval_args(
+            task="coco_inst", image_dir=img_dir, prompt_image=p_img,
+            prompt_target=p_inst, model=PAINTER, input_size=560,
+            batch_size=EVAL_BATCH, skip_metrics=True,
+            output_dir=os.path.join(root, "inst_out"))
+        sargs = rehearsal.eval_args(**{**vars(iargs), "task": "coco_semseg",
+                                       "prompt_target": p_sem,
+                                       "output_dir": os.path.join(
+                                           root, "sem_out")})
+        peng = engine(iargs)
+        check(peng.cfg.img_size == (1120, 560) and peng.cfg.num_patches ==
+              2450, f"panoptic model at {peng.cfg.img_size}")
+        inst_out, k1_inst = paint(iargs, peng, PANO_IMAGES,
+                                  "panoptic instances")
+        sem_out, k1_sem = paint(sargs, peng, PANO_IMAGES,
+                                "panoptic semantics")
+        inst_steps = against_plain(iargs, peng, inst_out, "panoptic")
+        inst_paint = paint_steady(iargs, peng, PANO_IMAGES)
+        sem_paint = paint_steady(sargs, peng, PANO_IMAGES)
+        pano_args = run_panoptic.get_args_parser().parse_args([
+            "--inst_dir", iargs.output_dir, "--semseg_dir",
+            sargs.output_dir, "--gt_json", gt_json, "--gt_dir", gt_dir])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_panoptic.evaluate(pano_args)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        pano_decode = steady(lambda: run_panoptic.evaluate(pano_args),
+                             PANO_IMAGES)
+        check(res["n_images"] == PANO_IMAGES and np.isfinite(res["PQ"]),
+              f"panoptic {res}")
+        n_inst, n_minmax, nms_diff = _decoders_card_vs_cpu(
+            _pngs([ade_out[0][1]])[0], *_pngs([inst_out[0][1],
+                                               sem_out[0][1]]))
+        lines.append(f"COCO panoptic 480x640 at 1120x560: {PANO_IMAGES} "
+                     f"images x {EVAL_REPS} calls, paint instances "
+                     f"{fmt(inst_paint)}, semantics {fmt(sem_paint)}, "
+                     f"decode + vote + fusion + PQ {fmt(pano_decode)} (peak "
+                     f"device memory {peak:.2f} GB), PQ {res['PQ']:.4f}, "
+                     f"K1 {k1_inst + k1_sem}, K1 vs plain {inst_steps} "
+                     f"uint8 steps")
+        lines.append(f"decoders card vs CPU on a {DECODE_CROP} crop: equal "
+                     f"({n_inst} instance masks, {n_minmax} min-max masks; "
+                     f"NMS scores max abs diff {nms_diff:.3e})")
+    for line in lines:
+        print(f"# eval {line} [{label}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1_ade + k1_pose + k1_q + k1_inst + k1_sem, k5_q
+
+
 # full-model gradients, K1/K2 vs plain attention. fp32: the loss to 1e-5
 # relative and each gradient to 1e-3 x its own max abs (24 blocks of fp32
 # sums in another order, forward and backward). bf16: relative L2 of the
@@ -1611,6 +1910,7 @@ def main():
     cli_k1, cli_k5 = timed("CLI drive", phase_cli, label)
     endpoint_k1 = timed("endpoint drive", phase_endpoint, label)
     painter_k1 = timed("Painter task drive", phase_painter_task, label)
+    eval_k1, eval_k5 = timed("eval drive", phase_eval, label)
     del model
     torch.cuda.empty_cache()
     timed("gradient check", phase_grad_check, label)
@@ -1618,13 +1918,14 @@ def main():
         "training drive", phase_train_cli, label)
     timed("remat full", phase_remat_full, result)
     timed("training times", phase_train_times, result, label)
-    infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1
+    infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1
     print(f"# K1 launches: serving main path {serve_k1}, video {video_k1}, "
           f"CLI {cli_k1}, endpoint {endpoint_k1}, Painter task {painter_k1}, "
-          f"training main path {train_k1}; K2 launches: training main path "
-          f"{train_k2}; K3 / K4 launches: training main path {train_k3} / "
-          f"{train_k4}; K5 launches: int8-fused serving path {serve_k5}, "
-          f"CLI --quant int8-fused {cli_k5}")
+          f"eval {eval_k1}, training main path {train_k1}; K2 launches: "
+          f"training main path {train_k2}; K3 / K4 launches: training main "
+          f"path {train_k3} / {train_k4}; K5 launches: int8-fused serving "
+          f"path {serve_k5}, CLI --quant int8-fused {cli_k5}, eval "
+          f"--quant int8-fused {eval_k5}")
     tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
                 TAIL_MAIN_SHAPE and r["K3"]["dtype"] == str(torch.bfloat16))
     k5_row = next(r for r in k5_rows if r["m"] == K5_MAIN_M)
@@ -1643,7 +1944,7 @@ def main():
                       "painter_tpu/kernels/decoder_head.py:304", train_k4,
                       tail["K4"]),
         _kernel_entry("int8_mlp", "painter_tpu/kernels/int8_mlp.py:87",
-                      serve_k5 + cli_k5, k5_row)]
+                      serve_k5 + cli_k5 + eval_k5, k5_row)]
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
