@@ -24,9 +24,16 @@ Painter ViT-L 896x448 (bf16 compute, fp32 params) with the fused decoder
 tail through ``painter_tpu_torch.train.train.main`` on a synthetic
 dataset, after
 full-model gradient checks of K1/K2 against plain attention and of K3/K4
-against the stock tail. Checks that each path went through its kernels,
-and that K2, K3, K4 and K5 give the same bits on two runs of the same
-inputs. Prints its findings, then a ``{"kernels": [...]}`` line and,
+against the stock tail. Then the data-parallel paths and the remat
+policies: serving on two replicas of SegGPT ViT-L on the one card, one
+micro-step of Painter ViT-L under each of the seven remat policies,
+``train.main --distributed`` over NCCL at world size 1 (its first update
+held to the non-distributed one's bits), and two gloo ranks on the one
+card (spawned as ``chip_smoke.py --gloo-rank R --store FILE --out FILE``;
+NCCL refuses two ranks on one device), fsdp 2 and dp 2 against one
+process at the global batch. Checks that each path went through its
+kernels, and that K2, K3, K4 and K5 give the same bits on two runs of the
+same inputs. Prints its findings, then a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is not 0 and the last line is not printed. Needs a CUDA device;
 it imports nothing of JAX.
@@ -1864,6 +1871,513 @@ def phase_train_times(result, label):
         for name, t in by_name.items()) + f" [{label}]")
 
 
+# data-parallel serving against the single-device model: the painted
+# [0,1] outputs within FWD_BF16_TOL, the uint8 ones within as many steps
+# (the replicas run their gemms at half the batch rows, which may pick
+# other cuBLAS kernels and round elsewhere)
+DP_U8_STEPS = round(FWD_BF16_TOL * 255)
+
+
+def phase_dp_serving(model, label):
+    """Data-parallel serving: ``InContextModel(mesh=["cuda:0", "cuda:0"])``
+    (two replicas on the one card, each painting half of every batch, the
+    ragged b7 padded to 8 by repeating row 0) on SegGPT ViT-L 896x448 in
+    bf16, through ``run_queries`` and ``run_queries_shared`` (float and
+    uint8 out), held to the single-device model on the same inputs; K1
+    counted around the dp calls: one forward per replica."""
+    from painter_tpu_torch.infer import engine
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    cfg = model.cfg
+    one = engine.InContextModel(cfg, model, device="cuda")
+    dp = engine.InContextModel(cfg, model, mesh=["cuda:0", "cuda:0"])
+    check(dp.n_dp == 2 and [m is model for _, m in dp._replicas] ==
+          [True, True], "dp replicas on one card share one model")
+    res = cfg.img_size[1]
+    rng = np.random.RandomState(5)
+    img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+    launches = 0
+    for n in (8, 7):
+        q_u8 = (rng.rand(n, res, res, 3) * 255).astype(np.uint8)
+        imgs, tgts = engine.build_query_batch(list(q_u8 / 255.0), img2,
+                                              tgt2)
+        calls = {
+            "run_queries": lambda e: e.run_queries(imgs, tgts),
+            "run_queries_shared": lambda e: e.run_queries_shared(
+                q_u8, img2, tgt2),
+            "run_queries_shared uint8": lambda e: e.run_queries_shared(
+                q_u8, img2, tgt2, out_dtype=np.uint8)}
+        for name, call in calls.items():
+            ref = call(one)
+            fr.flash_attention_relpos.launches = 0
+            got = call(dp)
+            k1 = fr.flash_attention_relpos.launches
+            launches += k1
+            err = float(np.abs(got.astype(np.float64)
+                               - ref.astype(np.float64)).max())
+            tol = DP_U8_STEPS if got.dtype == np.uint8 else FWD_BF16_TOL
+            print(f"# dp serving b{n} {name}: 2 replicas vs one device, max "
+                  f"abs {err:.4g} (tol {tol}), K1 launches {k1} [{label}]")
+            check(k1 == 2 * cfg.depth,
+                  f"dp {name}: K1 launched {k1}, expected {2 * cfg.depth}")
+            check(got.shape == ref.shape == (n, res, res, 3)
+                  and got.dtype == ref.dtype,
+                  f"dp {name}: {got.shape} {got.dtype} vs {ref.shape}")
+            check(np.isfinite(got).all() and err <= tol,
+                  f"dp {name} differs from one device by {err}")
+    return launches
+
+
+def _params_and_grads(model):
+    return ([p.detach().clone() for p in model.parameters()],
+            [p.grad.detach().clone() for p in model.parameters()])
+
+
+def _rel_l2(a, b):
+    num = sum(((x - y).double() ** 2).sum() for x, y in zip(a, b))
+    den = sum((y.double() ** 2).sum() for y in b)
+    return (num / den).sqrt().item()
+
+
+def phase_remat_policies(result, label):
+    """The seven remat policies at full width (Painter ViT-L 896x448,
+    bf16, the fused tail), in turns: one b2 micro-step's gradients under
+    each (same weights, batch and drop-path draws), K1 launches per
+    policy (one per block under the save_kernel policies, two under the
+    rest) and the gradients against save_kernel's within the bf16 limit;
+    then ms per update (b2, accum 1) and peak memory of each: every
+    policy's step runs once, then each peak window starts from the same
+    state (no gradients, garbage collected, the cache emptied), its base
+    taken there."""
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.models import incontext_vit as tm
+    from painter_tpu_torch.train import step as step_lib
+    model, opt = result["model"], result["optimizer"]
+    depth = model.cfg.depth
+    batch = _train_batch(model.cfg, 2, seed=9)
+    ref, k1, k2, rel = None, {}, {}, {}
+    for pol in ("save_kernel",) + tuple(
+            p for p in tm.REMAT_POLICIES if p != "save_kernel"):
+        model.zero_grad(set_to_none=True)
+        fr.flash_attention_relpos.launches = 0
+        fr.flash_attention_relpos_bwd.launches = 0
+        loss, _, _ = tm.forward(
+            model, batch["imgs"], batch["tgts"], batch["mask"],
+            batch["valid"], train=True, remat=True, remat_policy=pol,
+            generator=torch.Generator(device="cuda").manual_seed(7),
+            decoder_impl="fused")
+        loss.backward()
+        k1[pol] = fr.flash_attention_relpos.launches
+        k2[pol] = fr.flash_attention_relpos_bwd.launches
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        if ref is None:
+            ref = grads
+        rel[pol] = (_rel_l2(grads, ref),
+                    all(torch.equal(g, r) for g, r in zip(grads, ref)))
+        del grads
+        want = depth if pol.startswith("save_kernel") else 2 * depth
+        check(k1[pol] == want and k2[pol] == depth,
+              f"remat {pol}: K1 {k1[pol]} (expected {want}), K2 {k2[pol]}")
+        check(rel[pol][0] <= GRAD_BF16_REL_L2,
+              f"remat {pol}: gradients differ from save_kernel's by "
+              f"{rel[pol][0]}")
+    model.zero_grad(set_to_none=True)
+    del ref
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    steps = {pol: step_lib.make_train_step(
+        model.cfg, opt, accum_iter=1, remat_policy=pol, decoder_impl="fused")
+        for pol in k1}
+    held = {}  # allocated after each warm-up step, before any clean-up
+    for pol, st in steps.items():  # warm-up; the optimizer state exists
+        st(model, batch, gen)
+        torch.cuda.synchronize()
+        held[pol] = torch.cuda.memory_allocated() / 1e9
+    peaks = {}
+    for pol, st in steps.items():
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st(model, batch, gen)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[pol] = (peak / 1e9, (peak - base) / 1e9, base / 1e9)
+    times = {pol: [] for pol in steps}
+    for _ in range(2):
+        for pol, st in steps.items():
+            times[pol] += _timed_updates(st, model, batch, gen, 2)
+    print("# remat policies, b2 micro-step: policy K1 launches, gradient "
+          "relative L2 vs save_kernel (bitwise?), ms per update (mean of "
+          "4, in turns), peak GB (above the step's start; the start; "
+          "allocated after the warm-up step): " + "; ".join(
+              f"{pol} K1 {k1[pol]}, {rel[pol][0]:.2e} "
+              f"({'bitwise' if rel[pol][1] else 'not bitwise'}), "
+              f"{statistics.mean(times[pol]) * 1e3:.2f} ms, "
+              f"{peaks[pol][0]:.3f} ({peaks[pol][1]:.3f}; "
+              f"{peaks[pol][2]:.3f}; {held[pol]:.3f}) GB"
+              for pol in steps) + f" [{label}]")
+    return sum(k1.values()), sum(k2.values())
+
+
+def phase_nccl_world1(label):
+    """``torch.distributed`` over NCCL at world size 1 on Painter ViT-L
+    896x448, bf16, b2 x accum 2, save_kernel_attn remat, the fused tail.
+    First the data-parallel step (``make_train_step(mesh=...)``) against
+    the non-distributed step from the same weights, batch and drop-path
+    seed: the parameters, reduced gradients and moments after one update
+    (lr 1e-3 from the first update: no warmup), bitwise expected; then
+    both updates timed in turns. Then ``train.main --distributed`` (2
+    updates, 2 validation batches) on a synthetic dataset, K1-K4 counted
+    around it, and its rank-0 artifacts."""
+    import copy
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.parallel.mesh import make_mesh
+    from painter_tpu_torch.train import optim, step as step_lib, train
+    cfg = configs.get_config(PAINTER, dtype="bfloat16")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1, 1)
+        oc = optim.OptimConfig(warmup_epochs=0.0, steps_per_epoch=10)
+        models = {"dist": _seeded_model(cfg, 11).train()}
+        models["plain"] = copy.deepcopy(models["dist"])
+        start = [p.detach().clone() for p in models["plain"].parameters()]
+        opts = {"dist": optim.LayerDecayAdamW(models["dist"], cfg, oc,
+                                              mesh=mesh),
+                "plain": optim.LayerDecayAdamW(models["plain"], cfg, oc)}
+        kw = dict(accum_iter=2, remat_policy="save_kernel_attn",
+                  decoder_impl="fused")
+        steps = {"dist": step_lib.make_train_step(cfg, opts["dist"],
+                                                  mesh=mesh, **kw),
+                 "plain": step_lib.make_train_step(cfg, opts["plain"], **kw)}
+        batch = _train_batch(cfg, 2, seed=12, accum=2)
+        out, metrics = {}, {}
+        for name in ("dist", "plain"):
+            metrics[name] = steps[name](
+                models[name], batch,
+                torch.Generator(device="cuda").manual_seed(13))
+            out[name] = _params_and_grads(models[name])
+        moments = {name: [s["exp_avg"] for s in
+                          opts[name].adamw.state_dict()["state"].values()]
+                   for name in opts}
+        same = {what: all(torch.equal(a, b) for a, b in zip(
+            out["dist"][i], out["plain"][i]))
+            for i, what in enumerate(("parameters", "gradients"))}
+        same["moments"] = all(torch.equal(a, b) for a, b in zip(
+            moments["dist"], moments["plain"]))
+        same["loss"] = torch.equal(metrics["dist"]["loss"],
+                                   metrics["plain"]["loss"])
+        grad_rel = _rel_l2(out["dist"][1], out["plain"][1])
+        param_err = max((a - b).abs().max().item() for a, b in zip(
+            out["dist"][0], out["plain"][0]))
+        largest_update = max((a - b).abs().max().item() for a, b in zip(
+            out["plain"][0], start))
+        print(f"# NCCL world 1, first update vs the non-distributed step: "
+              f"bitwise {same}; gradients relative L2 {grad_rel:.3e}, "
+              f"parameters max abs {param_err:.3e} (largest update "
+              f"{largest_update:.3e}); loss "
+              f"{metrics['dist']['loss'].item():.6f} vs "
+              f"{metrics['plain']['loss'].item():.6f}, grad norm "
+              f"{metrics['dist']['grad_norm'].item():.5f} vs "
+              f"{metrics['plain']['grad_norm'].item():.5f} [{label}]")
+        # a sum over one rank and a copy through the flat bucket change
+        # no bit; if bits differ, a nondeterministic op of the backward
+        # did (none is known on this path): then the gradients are held to
+        # the bf16 limit, the parameters to twice the largest update (the
+        # first Adam step is sign-like)
+        check(largest_update > 0, "the first update moved nothing")
+        if not all(same.values()):
+            check(grad_rel <= GRAD_BF16_REL_L2,
+                  f"NCCL world-1 gradients differ by {grad_rel}")
+            check(param_err <= 2 * largest_update,
+                  f"NCCL world-1 parameters differ by {param_err}")
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        times = {name: [] for name in steps}
+        for _ in range(3):
+            for name in ("dist", "plain"):
+                times[name] += _timed_updates(steps[name], models[name],
+                                              batch, gen, 1)
+        print(f"# NCCL world 1 vs non-distributed, b2 x accum 2 update "
+              f"(in turns, mean of 3): "
+              f"{statistics.mean(times['dist']) * 1e3:.2f} ms vs "
+              f"{statistics.mean(times['plain']) * 1e3:.2f} ms (updates "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in times['dist'])} / "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in times['plain'])}) "
+              f"[{label}]")
+        del models, opts, steps, out, moments, start
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.TemporaryDirectory()
+    data = os.path.join(tmp.name, "data")
+    os.makedirs(data)
+    pairs = _write_dataset(data)
+    run = os.path.join(tmp.name, "run")
+    updates, accum, val_batches = 2, 2, 2
+    args = train.get_args_parser().parse_args([
+        "--distributed", "--coordinator", f"localhost:{_free_port()}",
+        "--num_processes", "1", "--process_id", "0",
+        "--data_path", data, "--json_path", pairs, "--val_json_path", pairs,
+        "--output_dir", run, "--model", PAINTER, "--dtype", "bfloat16",
+        "--input_size", *map(str, cfg.img_size),
+        "--num_mask_patches", str(cfg.num_patches // 2),
+        "--max_mask_patches_per_block", str(cfg.num_patches // 4),
+        "--batch_size", "2", "--accum_iter", str(accum), "--epochs", "1",
+        "--max_steps_per_epoch", str(updates), "--remat_policy",
+        "save_kernel_attn", "--decoder_impl", "fused", "--print_freq", "1",
+        "--watchdog_freq", "1"])
+    counters = (fr.flash_attention_relpos, fr.flash_attention_relpos_bwd,
+                dh.fused_decoder_tail, dh.fused_decoder_tail_bwd)
+    for c in counters:
+        c.launches = 0
+    result = train.main(args)
+    k1, k2, k3, k4 = (c.launches for c in counters)
+    micro = updates * accum
+    depth = cfg.depth
+    print(f"# train.main --distributed (NCCL, world 1, save_kernel_attn): "
+          f"K1 {k1} ({micro} micro-batches + {val_batches} validation "
+          f"batches), K2 {k2}, K3 {k3}, K4 {k4}")
+    check(not dist.is_initialized(), "train.main left its group")
+    check(result["step"] == updates, f"trained {result['step']} updates")
+    check((k1, k2, k3, k4) == (depth * (micro + val_batches), depth * micro,
+                               micro, micro),
+          f"NCCL training launched K1-K4 {(k1, k2, k3, k4)}")
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    with open(os.path.join(run, "log.txt")) as f:
+        stats = json.loads(f.readline())
+    ckpts = os.listdir(os.path.join(run, "checkpoints"))
+    check([s["step"] for s in scalars] == list(range(updates))
+          and all(np.isfinite(s["loss"]) for s in scalars),
+          f"scalars.jsonl {scalars}")
+    check(np.isfinite(stats["train_loss"]) and np.isfinite(stats["val_loss"]),
+          f"log.txt {stats}")
+    check(ckpts == [f"checkpoint-{updates}.pth"], f"checkpoints {ckpts}")
+    print(f"# train.main --distributed: losses "
+          f"{[round(s['loss'], 5) for s in scalars]}, val loss "
+          f"{stats['val_loss']:.5f}, wrote log.txt, scalars.jsonl, "
+          f"{ckpts[0]} [{label}]")
+    del result
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return k1, k2, k3, k4
+
+
+# the two gloo ranks on the one card: Painter ViT-L at full width, cut to
+# 6 blocks (the stream merge after block 2, taps at 2-5), bf16, b1 per
+# rank x accum 2, drop-path 0.1, save_kernel remat, the fused tail
+GLOO_CFG = dict(depth=6, merge_idx=2, out_indices=(2, 3, 4, 5),
+                dtype="bfloat16")
+GLOO_MODES = {"fsdp": (1, 2), "dp": (2, 1)}
+GLOO_RES = 448  # the painted half of 896x448
+
+
+def _gloo_rank(rank, store, out_path):
+    """One of the two gloo ranks on cuda:0 (run as ``chip_smoke.py
+    --gloo-rank R --store FILE --out FILE``): one data-parallel update
+    under each mesh of ``GLOO_MODES``; rank 0 also holds it to the
+    one-process update at the global batch (loss, grad norm, the reduced
+    gradients) and to the one-process AdamW applied to the reduced
+    gradients (the sharded optimizer's update), and checks that both ranks
+    hold the same parameters. Writes a JSON summary."""
+    import copy
+    import torch.distributed as dist
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.parallel.mesh import make_mesh
+    from painter_tpu_torch.train import optim, step as step_lib
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    cfg = configs.get_config(PAINTER, **GLOO_CFG)
+    oc = optim.OptimConfig(warmup_epochs=0.0, steps_per_epoch=10)
+    kw = dict(accum_iter=2, remat_policy="save_kernel", decoder_impl="fused")
+    batch = _train_batch(cfg, 2, seed=21, accum=2)
+    local = {k: v[:, rank:rank + 1] for k, v in batch.items()}
+    summary = {}
+    try:
+        for mode, (n_dp, n_fsdp) in GLOO_MODES.items():
+            mesh = make_mesh(n_dp, n_fsdp, device_type="cuda")
+            model = _seeded_model(cfg, 22).train()
+            start = copy.deepcopy(model)
+            opt = optim.LayerDecayAdamW(model, cfg, oc, mesh=mesh)
+            step = step_lib.make_train_step(cfg, opt, mesh=mesh, **kw)
+            for c in (fr.flash_attention_relpos,
+                      fr.flash_attention_relpos_bwd, dh.fused_decoder_tail,
+                      dh.fused_decoder_tail_bwd):
+                c.launches = 0
+            m = step(model, local, torch.Generator(device="cuda")
+                     .manual_seed(23))
+            torch.cuda.synchronize()
+            got = {"launches": [fr.flash_attention_relpos.launches,
+                                fr.flash_attention_relpos_bwd.launches,
+                                dh.fused_decoder_tail.launches,
+                                dh.fused_decoder_tail_bwd.launches],
+                   "loss": m["loss"].item(),
+                   "grad_norm": m["grad_norm"].item(),
+                   "sharded": sum(s is not None for s in opt.shards)}
+            # both ranks' parameters, one fingerprint each
+            fp = torch.stack([torch.stack([p.detach().double().sum(),
+                                           (p.detach().double() ** 2).sum()])
+                              for p in model.parameters()]).cpu()
+            fps = [torch.empty_like(fp) for _ in range(2)]
+            dist.all_gather(fps, fp)
+            got["ranks_equal"] = torch.equal(fps[0], fps[1])
+            if rank == 0:
+                params, grads = _params_and_grads(model)
+                ref = copy.deepcopy(start)
+                ref_opt = optim.LayerDecayAdamW(ref, cfg, oc)
+                ref_m = step_lib.make_train_step(cfg, ref_opt, **kw)(
+                    ref, batch, torch.Generator(device="cuda")
+                    .manual_seed(23))
+                got["ref_loss"] = ref_m["loss"].item()
+                got["ref_grad_norm"] = ref_m["grad_norm"].item()
+                got["grad_rel_l2"] = _rel_l2(
+                    grads, [p.grad for p in ref.parameters()])
+                # the one-process AdamW on the two ranks' reduced,
+                # clipped gradients
+                replay_opt = optim.LayerDecayAdamW(
+                    start, cfg, optim.OptimConfig(
+                        warmup_epochs=0.0, steps_per_epoch=10,
+                        clip_grad=None))
+                for p, g in zip(start.parameters(), grads):
+                    p.grad = g
+                replay_opt.step()
+                got["update_max_abs"] = max(
+                    (a - b.detach()).abs().max().item()
+                    for a, b in zip(params, start.parameters()))
+                got["param_max"] = max(p.abs().max().item() for p in params)
+                del ref, ref_opt, params, grads
+            summary[mode] = got
+            del model, start, opt, step
+            torch.cuda.empty_cache()
+        summary["serve"] = _gloo_serve(cfg, rank)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(summary, f)
+
+
+def _gloo_serve(cfg, rank):
+    """dp serving over the gloo group: ``InContextModel(mesh=<a cuda
+    DeviceMesh>)`` with no ``device`` serves on the card; a ragged batch
+    of 3 (padded to 4, two rows per rank) through ``run_queries``; rank 0
+    holds it to one device."""
+    import hashlib
+    from painter_tpu_torch.infer import engine
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.parallel.mesh import make_mesh
+    model = _seeded_model(cfg, 24)
+    eng = engine.InContextModel(cfg, model,
+                                mesh=make_mesh(2, 1, device_type="cuda"))
+    res = cfg.img_size[1]
+    rng = np.random.RandomState(25)
+    img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+    imgs, tgts = engine.build_query_batch(list(rng.rand(3, res, res, 3)),
+                                          img2, tgt2)
+    fr.flash_attention_relpos.launches = 0
+    got = eng.run_queries(imgs, tgts)
+    out = {"device": str(eng.device), "shape": list(got.shape),
+           "launches": fr.flash_attention_relpos.launches,
+           "finite": bool(np.isfinite(got).all()),
+           "digest": hashlib.sha256(got.tobytes()).hexdigest()}
+    if rank == 0:
+        ref = engine.InContextModel(cfg, model).run_queries(imgs, tgts)
+        out["max_abs"] = float(np.abs(got.astype(np.float64) - ref).max())
+    return out
+
+
+def phase_gloo_ranks(label):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), spawned as processes of this script: an update under fsdp 2
+    and one under dp 2 (``GLOO_CFG``), held to the one-process update at
+    the global batch, then dp serving over the group (``_gloo_serve``).
+    Returns each kernel's launches over both ranks."""
+    import os
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    outs = [os.path.join(tmp.name, f"rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--gloo-rank", str(r), "--store",
+         os.path.join(tmp.name, "store"), "--out", outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"gloo rank {r} failed:\n{log[-3000:]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    tmp.cleanup()
+    depth = GLOO_CFG["depth"]
+    s0, s1 = ranks[0]["serve"], ranks[1]["serve"]
+    print(f"# gloo, 2 ranks on cuda:0, dp serving (a cuda DeviceMesh, no "
+          f"device), ragged b3, {depth} blocks: devices {s0['device']} / "
+          f"{s1['device']}, K1 launches {s0['launches']} / "
+          f"{s1['launches']}, ranks' outputs equal "
+          f"{s0['digest'] == s1['digest']}, max abs vs one device "
+          f"{s0['max_abs']:.4g} (tol {FWD_BF16_TOL}) [{label}]")
+    for r in (s0, s1):
+        check(r["device"].startswith("cuda") and r["finite"]
+              and r["shape"] == [3] + [GLOO_RES] * 2 + [3]
+              and r["launches"] == depth,
+              f"gloo dp serving: {r}")
+    check(s0["digest"] == s1["digest"] and s0["max_abs"] <= FWD_BF16_TOL,
+          f"gloo dp serving differs: {s0}, {s1}")
+    totals = [s0["launches"] + s1["launches"], 0, 0, 0]
+    for mode in GLOO_MODES:
+        r0, r1 = ranks[0][mode], ranks[1][mode]
+        for r in (r0, r1):
+            totals = [a + b for a, b in zip(totals, r["launches"])]
+        loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        gn_err = abs(r0["grad_norm"] - r0["ref_grad_norm"]) / \
+            r0["ref_grad_norm"]
+        print(f"# gloo, 2 ranks on cuda:0, {mode} (mesh "
+              f"{GLOO_MODES[mode]}), {depth} blocks: launches K1-K4 rank 0 "
+              f"{r0['launches']}, rank 1 {r1['launches']}; loss "
+              f"{r0['loss']:.6f} vs one process {r0['ref_loss']:.6f} (rel "
+              f"{loss_err:.2e}), grad norm rel {gn_err:.2e}, reduced "
+              f"gradients relative L2 {r0['grad_rel_l2']:.3e} (tol "
+              f"{GRAD_BF16_REL_L2}); the update vs one-process AdamW on the "
+              f"same gradients max abs {r0['update_max_abs']:.3e} (params "
+              f"max {r0['param_max']:.3f}); {r0['sharded']} parameters "
+              f"sharded; ranks hold equal parameters "
+              f"{r0['ranks_equal'] and r1['ranks_equal']} [{label}]")
+        for r in (r0, r1):
+            check(r["launches"] == [2 * depth, 2 * depth, 2, 2],
+                  f"gloo {mode}: launches {r['launches']}")
+        check(r0["ranks_equal"] and r1["ranks_equal"],
+              f"gloo {mode}: the ranks hold different parameters")
+        check((r0["sharded"] > 0) == (mode == "fsdp"),
+              f"gloo {mode}: {r0['sharded']} sharded parameters")
+        check(max(loss_err, gn_err, r0["grad_rel_l2"]) <= GRAD_BF16_REL_L2,
+              f"gloo {mode}: the update differs from one process's")
+        # AdamW is elementwise: the sliced update is the whole one up to
+        # fp32 rounding of the parameters
+        check(r0["update_max_abs"] <= 1e-6 * r0["param_max"],
+              f"gloo {mode}: the sharded update differs by "
+              f"{r0['update_max_abs']}")
+    return totals
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1911,6 +2425,7 @@ def main():
     endpoint_k1 = timed("endpoint drive", phase_endpoint, label)
     painter_k1 = timed("Painter task drive", phase_painter_task, label)
     eval_k1, eval_k5 = timed("eval drive", phase_eval, label)
+    dp_k1 = timed("dp serving", phase_dp_serving, model, label)
     del model
     torch.cuda.empty_cache()
     timed("gradient check", phase_grad_check, label)
@@ -1918,12 +2433,28 @@ def main():
         "training drive", phase_train_cli, label)
     timed("remat full", phase_remat_full, result)
     timed("training times", phase_train_times, result, label)
-    infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1
+    remat_k1, remat_k2 = timed("remat policies", phase_remat_policies,
+                               result, label)
+    del result
+    torch.cuda.empty_cache()
+    nccl_k1, nccl_k2, nccl_k3, nccl_k4 = timed("NCCL world 1",
+                                               phase_nccl_world1, label)
+    gloo_k1, gloo_k2, gloo_k3, gloo_k4 = timed("gloo two ranks",
+                                               phase_gloo_ranks, label)
+    infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1 + \
+        dp_k1
+    dist_k = (remat_k1 + nccl_k1 + gloo_k1, remat_k2 + nccl_k2 + gloo_k2,
+              nccl_k3 + gloo_k3, nccl_k4 + gloo_k4)
     print(f"# K1 launches: serving main path {serve_k1}, video {video_k1}, "
           f"CLI {cli_k1}, endpoint {endpoint_k1}, Painter task {painter_k1}, "
-          f"eval {eval_k1}, training main path {train_k1}; K2 launches: "
-          f"training main path {train_k2}; K3 / K4 launches: training main "
-          f"path {train_k3} / {train_k4}; K5 launches: int8-fused serving "
+          f"eval {eval_k1}, dp serving {dp_k1}, training main path "
+          f"{train_k1}, remat policies {remat_k1}, NCCL world 1 {nccl_k1}, "
+          f"gloo ranks {gloo_k1}; K2 launches: training main path "
+          f"{train_k2}, remat policies {remat_k2}, NCCL world 1 {nccl_k2}, "
+          f"gloo ranks {gloo_k2}; K3 / K4 launches: training main path "
+          f"{train_k3} / {train_k4}, NCCL world 1 {nccl_k3} / {nccl_k4}, "
+          f"gloo ranks {gloo_k3} / {gloo_k4}; K5 launches: int8-fused "
+          f"serving "
           f"path {serve_k5}, CLI --quant int8-fused {cli_k5}, eval "
           f"--quant int8-fused {eval_k5}")
     tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
@@ -1932,17 +2463,17 @@ def main():
     kernels = [
         _kernel_entry("flash_relpos_fwd",
                       "painter_tpu/kernels/flash_relpos.py:399",
-                      serve_k1 + infer_k1 + train_k1,
+                      serve_k1 + infer_k1 + train_k1 + dist_k[0],
                       _row(k1_rows, K1_MAIN_SHAPE)),
         _kernel_entry("flash_relpos_bwd",
                       "painter_tpu/kernels/flash_relpos.py:438",
-                      train_k2, _row(k2_rows, K2_MAIN_SHAPE)),
+                      train_k2 + dist_k[1], _row(k2_rows, K2_MAIN_SHAPE)),
         _kernel_entry("decoder_tail_fwd",
-                      "painter_tpu/kernels/decoder_head.py:180", train_k3,
-                      tail["K3"]),
+                      "painter_tpu/kernels/decoder_head.py:180",
+                      train_k3 + dist_k[2], tail["K3"]),
         _kernel_entry("decoder_tail_bwd",
-                      "painter_tpu/kernels/decoder_head.py:304", train_k4,
-                      tail["K4"]),
+                      "painter_tpu/kernels/decoder_head.py:304",
+                      train_k4 + dist_k[3], tail["K4"]),
         _kernel_entry("int8_mlp", "painter_tpu/kernels/int8_mlp.py:87",
                       serve_k5 + cli_k5 + eval_k5, k5_row)]
     print(f"# total {time.perf_counter() - t_start:.1f} s")
@@ -1953,4 +2484,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--gloo-rank":
+        # one of phase_gloo_ranks' processes
+        _gloo_rank(int(sys.argv[2]), sys.argv[4], sys.argv[6])
+    else:
+        main()

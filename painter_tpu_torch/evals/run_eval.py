@@ -68,8 +68,10 @@ def get_args_parser():
                         "reference's per-image loop; >1 the batched path "
                         "with one shared prompt")
     p.add_argument("--n_dp", type=int, default=1,
-                   help="data-parallel devices: not ported (the port "
-                        "paints on one device)")
+                   help=">1: split each query batch over that many local "
+                        "devices, one model replica each (cuda:0.."
+                        "n_dp-1; replicas on the host under --device "
+                        "cpu); combine with --num_shards across hosts")
     p.add_argument("--quant", default="none", choices=list(QUANT_MODES),
                    help="int8: w8a8 quantized MLP gemms (ops/quant.py); "
                         "int8-fused also runs each MLP through the fused "
@@ -102,7 +104,9 @@ def build_model(args, device=None):
     (default ``args.device``, else ``cuda``; raises without a card unless
     the device is the CPU): random weights from a generator seeded 0, the
     ``--ckpt_path`` .pth loaded over them when given, served at
-    ``--quant``."""
+    ``--quant``; ``--n_dp`` > 1 serves the batched paths data-parallel
+    over the first ``n_dp`` local cards (replicas on the host under
+    ``--device cpu``), and raises ``SystemExit`` when there are fewer."""
     import torch
     from painter_tpu_torch import configs
     from painter_tpu_torch.device import resolve_device
@@ -110,11 +114,16 @@ def build_model(args, device=None):
     from painter_tpu_torch.models import incontext_vit as model_lib
     from painter_tpu_torch.train.checkpoint import load_torch_params
 
-    if getattr(args, "n_dp", 1) > 1:
-        raise NotImplementedError(
-            f"--n_dp {args.n_dp}: data-parallel eval is not ported yet; it "
-            "comes with DDP. The port paints on one device")
     dev = resolve_device(device or getattr(args, "device", None))
+    n_dp = getattr(args, "n_dp", 1)
+    mesh = None
+    if n_dp > 1 and dev.type == "cuda":
+        if torch.cuda.device_count() < n_dp:
+            raise SystemExit(f"--n_dp {n_dp} > {torch.cuda.device_count()} "
+                             "local devices")
+        mesh = [torch.device("cuda", i) for i in range(n_dp)]
+    elif n_dp > 1:
+        mesh = [dev] * n_dp
     model_name = args.model or (
         SEGGPT_MODEL if args.task.startswith("seggpt") else PAINTER_MODEL)
     cfg = configs.get_config(
@@ -125,7 +134,7 @@ def build_model(args, device=None):
     if args.ckpt_path:
         load_torch_params(args.ckpt_path, model)
     return InContextModel(cfg, model, device=dev,
-                          quant=getattr(args, "quant", "none"))
+                          quant=getattr(args, "quant", "none"), mesh=mesh)
 
 
 def _load_depth_target(path: str, res: int):
@@ -188,7 +197,7 @@ def paint_predictions(args, model) -> list:
             # raw uint8; the batched path does /255 on the device
             # (bit-exact, ops/image.from_uint8), the per-image path here
             queries.append(np.array(image.resize((res, res))))
-        if bs == 1:
+        if bs == 1 and model.mesh is None:
             # --batch_size 1 = the reference's per-image mode
             imgs, tgts = build_prompt_batch(queries[0] / 255.0,
                                             [(img2, tgt2)])

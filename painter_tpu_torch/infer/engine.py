@@ -25,6 +25,7 @@ video, imported only there).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -131,18 +132,62 @@ class InContextModel:
     ``device="cpu"`` to run on the host. ``quant`` serves an int8 copy of
     the model (:data:`QUANT_MODES`, :func:`prepare_model`); ``attn_impl``
     picks the attention route of every forward (:data:`ATTN_IMPLS`).
+
+    ``mesh`` makes the batched paths (:meth:`run_queries`,
+    :meth:`run_queries_shared`) data-parallel, as the JAX engine's
+    ``mesh``; a ragged batch is padded to a multiple of the dp size by
+    repeating row 0, and each dp rank paints its block of rows:
+
+    - a sequence of devices (one process; ``["cuda:0", "cuda:1"]``, or a
+      device named twice): one replica of the model per device, the row
+      blocks' forwards all issued before any output is fetched, the
+      prompt cache replicated on every device. ``device`` is the first;
+    - a ``DeviceMesh`` with a ``dp`` dim (one device per process, as JAX's
+      ``_multiproc``): every rank is given the full host batch, paints its
+      own rows on ``device`` (default: the mesh's ``device_type``, which
+      raises when that is ``cuda`` and there is no card) and all-gathers
+      the output to every rank.
+
+    ``run_one_image``, the video caches and the endpoint stay on one
+    device: only the batched paths are data-parallel.
     """
 
     def __init__(self, cfg: ModelConfig, model: model_lib.InContextViT,
                  attn_impl: str = "kernel", seg_type: str = "semantic",
-                 pad_prompts: bool = True, device=None, quant: str = "none"):
+                 pad_prompts: bool = True, device=None, quant: str = "none",
+                 mesh=None):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.mesh = mesh
+        self._multiproc = mesh is not None and not isinstance(
+            mesh, (list, tuple))
+        if self._multiproc:
+            if device is None:
+                device = mesh.device_type
+            self.n_dp = mesh["dp"].size()
+            self._dp_rank = mesh.get_local_rank("dp")
+        elif mesh is not None:
+            if not len(mesh):
+                raise ValueError("mesh must name at least one device")
+            device = mesh[0]
+            self.n_dp = len(mesh)
+        else:
+            self.n_dp = 1
         self.device = resolve_device(device)
         self.model = prepare_model(model.to(self.device), quant).eval()
+        # the (device, model) replica of each dp row block on this
+        # process; a device named twice serves both blocks from one copy
+        self._replicas = [(self.device, self.model)]
+        if mesh is not None and not self._multiproc:
+            copies = {self.device: self.model}
+            for d in mesh[1:]:
+                d = resolve_device(d)
+                if d not in copies:
+                    copies[d] = copy.deepcopy(self.model).to(d)
+                self._replicas.append((d, copies[d]))
         self.seg_type = seg_type  # 'semantic' | 'instance' (SegGPT CLI)
         # prompt counts pad to powers of two with a weighted ensemble
         # (weight 0 on pads == the mean over the real prompts), so a
@@ -150,14 +195,16 @@ class InContextModel:
         self.pad_prompts = pad_prompts
         self._prompt_dev_cache = None
 
-    def _seg_type(self, n: int) -> Optional[torch.Tensor]:
+    def _seg_type(self, n: int, device=None) -> Optional[torch.Tensor]:
         if not self.cfg.seg_type_tokens:
             return None
         val = 1 if self.seg_type == "instance" else 0
-        return torch.full((n, 1), val, dtype=torch.long, device=self.device)
+        return torch.full((n, 1), val, dtype=torch.long,
+                          device=device or self.device)
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _put(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device or self.device)
 
     @torch.inference_mode()
     def run_one_image(self, img: np.ndarray, tgt: np.ndarray) -> np.ndarray:
@@ -189,6 +236,33 @@ class InContextModel:
             ensemble_weights=weights, attn_impl=self.attn_impl)
         return image_ops.denormalize(out).cpu().numpy()
 
+    def _pad_dp(self, *arrays: np.ndarray):
+        """Pad the rows to a multiple of the dp size by repeating row 0
+        (the JAX engine's ragged-batch padding)."""
+        pad = -arrays[0].shape[0] % self.n_dp
+        if not pad:
+            return arrays
+        return tuple(np.concatenate([a, np.repeat(a[:1], pad, axis=0)])
+                     for a in arrays)
+
+    def _dp_run(self, paint, n: int) -> np.ndarray:
+        """``paint(device, model, rows)`` on every row
+        block of a padded batch of ``n`` -> the whole output on the host.
+        One process: every block's launches go out before any fetch.
+        Across processes: this rank's block, all-gathered."""
+        per = n // self.n_dp
+        if self._multiproc:
+            import torch.distributed as dist
+            r = self._dp_rank
+            out = paint(self.device, self.model,
+                        slice(r * per, (r + 1) * per)).contiguous()
+            parts = [torch.empty_like(out) for _ in range(self.n_dp)]
+            dist.all_gather(parts, out, group=self.mesh.get_group("dp"))
+            return torch.cat(parts).cpu().numpy()
+        outs = [paint(dev, model, slice(i * per, (i + 1) * per))
+                for i, (dev, model) in enumerate(self._replicas)]
+        return np.concatenate([o.cpu().numpy() for o in outs])
+
     @torch.inference_mode()
     def run_queries(self, imgs: np.ndarray, tgts: np.ndarray,
                     real_count: Optional[int] = None) -> np.ndarray:
@@ -198,16 +272,45 @@ class InContextModel:
         de-normalized [0,1]-scale bottom halves of the first
         ``real_count`` samples.
         """
-        n = imgs.shape[0]
+        q = imgs.shape[0]
+        imgs, tgts = self._pad_dp(imgs, tgts)
         num_patches = (imgs.shape[1] // self.cfg.patch_size) * \
             (imgs.shape[2] // self.cfg.patch_size)
-        mask = image_ops.bottom_half_mask(n, num_patches, self.device)
-        out = model_lib.predict_query_half_batch(
-            self.model, self._put(np.asarray(imgs, np.float32)),
-            self._put(np.asarray(tgts, np.float32)), mask,
-            seg_type=self._seg_type(n), attn_impl=self.attn_impl)
-        out = image_ops.denormalize(out).cpu().numpy()
-        return out[:real_count if real_count else n]
+
+        def paint(device, model, rows):
+            im = imgs[rows]
+            b = im.shape[0]
+            out = model_lib.predict_query_half_batch(
+                model, self._put(np.asarray(im, np.float32), device),
+                self._put(np.asarray(tgts[rows], np.float32), device),
+                image_ops.bottom_half_mask(b, num_patches, device),
+                seg_type=self._seg_type(b, device),
+                attn_impl=self.attn_impl)
+            return image_ops.denormalize(out)
+
+        out = self._dp_run(paint, imgs.shape[0])
+        return out[:real_count if real_count else q]
+
+    def _prompt_cache(self, img2: np.ndarray, tgt2: np.ndarray) -> dict:
+        """device -> the normalized prompt halves on it, cached across
+        calls while the prompt arrays stay the same."""
+        # the cache HOLDS the host arrays, so the `is` checks cannot be
+        # fooled by a recycled id(); the content digest catches in-place
+        # edits of the cached arrays
+        fp = (_array_digest(img2), _array_digest(tgt2))
+        cache = self._prompt_dev_cache
+        if (cache is None or cache[0] is not img2 or cache[1] is not tgt2
+                or cache[2] != fp):
+            cache = self._prompt_dev_cache = (img2, tgt2, fp, {})
+        return cache[3]
+
+    def _prompt_on(self, by_device: dict, img2: np.ndarray,
+                   tgt2: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
+        if device not in by_device:
+            tgt_pair = _np_normalize(np.concatenate([tgt2, tgt2], axis=0))
+            by_device[device] = (self._put(_np_normalize(img2), device),
+                                 self._put(tgt_pair, device))
+        return by_device[device]
 
     @torch.inference_mode()
     def run_queries_shared(self, queries: np.ndarray, img2: np.ndarray,
@@ -223,36 +326,34 @@ class InContextModel:
         returns the 0-255 write-path values instead of [0,1] float32 --
         protocol-exact only for nearest/identity-resize tasks.
         """
-        # the cache HOLDS the host arrays, so the `is` checks cannot be
-        # fooled by a recycled id(); the content digest catches in-place
-        # edits of the cached arrays
-        fp = (_array_digest(img2), _array_digest(tgt2))
-        cache = self._prompt_dev_cache
-        if (cache is None or cache[0] is not img2 or cache[1] is not tgt2
-                or cache[2] != fp):
-            tgt_pair = _np_normalize(np.concatenate([tgt2, tgt2], axis=0))
-            self._prompt_dev_cache = (
-                img2, tgt2, fp, self._put(_np_normalize(img2)),
-                self._put(tgt_pair))
-        img2_dev, tgt2_dev = self._prompt_dev_cache[3:]
-        n = queries.shape[0]
-        q = self._put(queries if queries.dtype == np.uint8
-                      else np.asarray(queries, np.float32))
-        if q.dtype == torch.uint8:
-            q = image_ops.from_uint8(q)
-        q = image_ops.normalize(q)
-        imgs = torch.cat([img2_dev.expand(q.shape), q], dim=1)
-        tgts = tgt2_dev.expand((n,) + tuple(tgt2_dev.shape))
-        num_patches = (imgs.shape[1] // self.cfg.patch_size) * \
-            (imgs.shape[2] // self.cfg.patch_size)
-        mask = image_ops.bottom_half_mask(n, num_patches, self.device)
-        out = model_lib.predict_query_half_batch(
-            self.model, imgs, tgts, mask, seg_type=self._seg_type(n),
-            attn_impl=self.attn_impl)
-        out = image_ops.denormalize(out)
-        if np.dtype(out_dtype) == np.uint8:
-            out = image_ops.to_uint8_255(out)
-        return out.cpu().numpy()[:real_count if real_count else n]
+        q_total = queries.shape[0]
+        (queries,) = self._pad_dp(queries)
+        by_device = self._prompt_cache(img2, tgt2)
+        u8_out = np.dtype(out_dtype) == np.uint8
+
+        def paint(device, model, rows):
+            img2_dev, tgt2_dev = self._prompt_on(by_device, img2, tgt2,
+                                                 device)
+            qh = queries[rows]
+            n = qh.shape[0]
+            q = self._put(qh if qh.dtype == np.uint8
+                          else np.asarray(qh, np.float32), device)
+            if q.dtype == torch.uint8:
+                q = image_ops.from_uint8(q)
+            q = image_ops.normalize(q)
+            imgs = torch.cat([img2_dev.expand(q.shape), q], dim=1)
+            tgts = tgt2_dev.expand((n,) + tuple(tgt2_dev.shape))
+            num_patches = (imgs.shape[1] // self.cfg.patch_size) * \
+                (imgs.shape[2] // self.cfg.patch_size)
+            mask = image_ops.bottom_half_mask(n, num_patches, device)
+            out = model_lib.predict_query_half_batch(
+                model, imgs, tgts, mask, seg_type=self._seg_type(n, device),
+                attn_impl=self.attn_impl)
+            out = image_ops.denormalize(out)
+            return image_ops.to_uint8_255(out) if u8_out else out
+
+        out = self._dp_run(paint, queries.shape[0])
+        return out[:real_count if real_count else q_total]
 
 
 def scale_and_resize(output: np.ndarray, size_wh: Tuple[int, int],

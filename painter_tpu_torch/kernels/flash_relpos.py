@@ -19,14 +19,12 @@ launches.
 :class:`FlashAttentionRelpos` makes the pair differentiable, as
 ``_flash_core`` / ``_attach_vjp`` do in JAX: its forward runs K1 and saves
 exactly ``(q, k, v, rel_h, rel_w, out, lse)``; its backward runs K2.
-:class:`KernelOutputCache` keeps K1's outputs of a checkpointed block, so
-the backward's recompute never runs K1 again (the JAX ``save_kernel``
-remat policy).
+Under the ``save_kernel*`` remat policies a checkpointed block keeps K1's
+outputs under the name ``attn_kernel`` (``ops/remat.py``), so the
+backward's recompute never runs K1 again.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import ctypes
 import functools
 from typing import Tuple
@@ -34,6 +32,7 @@ from typing import Tuple
 import torch
 
 from painter_tpu_torch.kernels import build
+from painter_tpu_torch.ops.remat import kept
 
 HEAD_DIM = 64
 # the bf16 forward keeps its 128 rows' rel terms in shared memory: 512
@@ -247,52 +246,14 @@ def flash_attention_relpos_bwd(q, k, v, rel_h, rel_w, out, lse, dout,
 flash_attention_relpos_bwd.launches = 0
 
 
-class KernelOutputCache:
-    """K1's outputs of one checkpointed block, kept for its recompute.
-
-    The "save_kernel" remat policy (``_flash_core``'s named residuals in
-    JAX): inside :meth:`active`, the block's first run records each
-    attention forward's ``(out, lse)``; a later run of the same block (the
-    checkpoint's recompute in the backward) takes them back in order
-    instead of launching K1 again. Only the outputs are kept: the
-    recompute re-runs LN, the gemms and the MLP.
-    """
-
-    def __init__(self):
-        self._saved = []
-        self._runs = 0
-
-    @contextlib.contextmanager
-    def active(self):
-        token = _ACTIVE_CACHE.set(self)
-        try:
-            yield
-        finally:
-            _ACTIVE_CACHE.reset(token)
-            self._runs += 1
-
-    def forward(self, compute):
-        if self._runs == 0:
-            out, lse = compute()
-            # aliases: each Function application returns its own objects
-            self._saved.append((out.detach(), lse.detach()))
-            return out, lse
-        if self._saved:
-            return self._saved.pop(0)
-        return compute()
-
-
-_ACTIVE_CACHE: contextvars.ContextVar = contextvars.ContextVar(
-    "flash_relpos_kernel_output_cache", default=None)
-
-
 class FlashAttentionRelpos(torch.autograd.Function):
     """K1 forward, K2 backward (``_attach_vjp`` in JAX).
 
     Saves exactly ``(q, k, v, rel_h, rel_w, out, lse)``. The gradients
     of ``rel_h`` / ``rel_w`` go on through autograd of the rel-term einsum
     to the tables and into dq, as ``rel_vjp`` carries them in JAX. Under
-    an active :class:`KernelOutputCache` a recompute reuses K1's outputs.
+    a remat policy that keeps ``attn_kernel`` a recompute reuses K1's
+    outputs.
     """
 
     @staticmethod
@@ -301,8 +262,7 @@ class FlashAttentionRelpos(torch.autograd.Function):
             return flash_attention_relpos(q, k, v, rel_h, rel_w, k_size,
                                           scale)
 
-        cache = _ACTIVE_CACHE.get()
-        out, lse = compute() if cache is None else cache.forward(compute)
+        out, lse = kept("attn_kernel", compute)
         ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
         ctx.k_size = tuple(k_size)
         ctx.scale = scale

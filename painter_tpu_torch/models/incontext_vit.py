@@ -30,7 +30,7 @@ per-block activation checkpointing (:data:`REMAT_POLICIES`).
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,12 +41,12 @@ from torch.utils.checkpoint import checkpoint
 from painter_tpu_torch.configs import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 from painter_tpu_torch.device import resolve_device
 from painter_tpu_torch.kernels.decoder_head import decoder_tail_fn
-from painter_tpu_torch.kernels.flash_relpos import KernelOutputCache
 from painter_tpu_torch.ops.attention import attention
 from painter_tpu_torch.ops.norm import layer_norm
 from painter_tpu_torch.ops.patches import patchify
 from painter_tpu_torch.ops.pos_embed import get_abs_pos
 from painter_tpu_torch.ops.quant import linear, mlp
+from painter_tpu_torch.ops.remat import SavedOutputs
 from painter_tpu_torch.ops.windows import window_partition, window_unpartition
 
 
@@ -311,39 +311,77 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ModelConfig, *,
     return x + _drop_path(xm, keep_mlp, dpr)
 
 
-# Per-block activation checkpointing (the JAX ``remat_policy``): "full"
-# recomputes the whole block in the backward; "save_kernel" keeps the
-# attention kernel's outputs (out, lse), so the recompute re-runs LN, the
-# gemms and the MLP but never the attention forward
-REMAT_POLICIES = ("full", "save_kernel")
+# Per-block activation checkpointing (the JAX ``remat_policy``,
+# ``incontext_vit.py:455-507``): the backward recomputes each block from
+# its input, keeping only what the policy names. "full" keeps nothing;
+# "save_kernel" keeps the attention kernel's outputs (out, lse), so the
+# recompute never runs the attention forward; "save_attn" keeps the
+# post-proj attention output ``attn_out``, which skips the proj gemm but
+# not the attention forward, whose residuals its backward needs (as the
+# JAX comment says, it measured like "full"); "save_kernel_attn" and
+# "save_kernel_mlp" add ``attn_out`` / the fc1 pre-activation ``mlp_fc1``
+# to "save_kernel"; "save_attn_mlp" keeps ``attn_out`` and ``mlp_fc1``;
+# "save_dots" keeps the outputs of the block's matmuls without batch dims
+# (qkv, proj, fc1, fc2; the attention kernel is not one of them)
+REMAT_POLICIES = ("full", "save_attn", "save_kernel", "save_kernel_attn",
+                  "save_kernel_mlp", "save_attn_mlp", "save_dots")
 
 
-def _checkpointed(fn, policy: str):
+def saved_names(policy: str, attn_impl: str = "kernel") -> Tuple[str, ...]:
+    """The tensors a block checkpointed under ``policy`` keeps:
+    ``attn_kernel`` (the attention kernel's (out, lse)) and the outputs
+    of the named linears (``ops/remat.py``). Without the kernel
+    (``attn_impl="plain"``) the ``save_kernel*`` policies keep
+    ``attn_out`` in its place, as JAX's ``seg_impl != "pallas"`` branch."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; the policies "
+                         f"are {REMAT_POLICIES}")
+    kernel = ("attn_kernel",) if attn_impl == "kernel" else ("attn_out",)
+    return tuple(dict.fromkeys({
+        "full": (), "save_attn": ("attn_out",), "save_kernel": kernel,
+        "save_kernel_attn": kernel + ("attn_out",),
+        "save_kernel_mlp": kernel + ("mlp_fc1",),
+        "save_attn_mlp": ("attn_out", "mlp_fc1"),
+        "save_dots": ("qkv", "attn_out", "mlp_fc1", "mlp_fc2")}[policy]))
+
+
+def _checkpointed(fn, policy: str, attn_impl: str):
     """``fn(x, drop_mask=...)`` checkpointed under ``policy``. The block
     draws no random numbers (its drop-path masks come in), so the RNG
-    state is not saved for the recompute."""
-    if policy not in REMAT_POLICIES:
-        raise ValueError(f"remat_policy {policy!r} is not ported; the port "
-                         f"has {REMAT_POLICIES}")
+    state is not saved for the recompute. A :class:`SavedOutputs` of the
+    policy's names keeps their outputs from the first run for the
+    recompute (``ops/remat.py``)."""
+    names = saved_names(policy, attn_impl)
 
     def run(x, drop_mask, cache):
-        if cache is None:
-            return fn(x, drop_mask=drop_mask)
         with cache.active():
             return fn(x, drop_mask=drop_mask)
 
     def apply(x, drop_mask):
-        cache = KernelOutputCache() if policy == "save_kernel" else None
-        return checkpoint(run, x, drop_mask, cache, use_reentrant=False,
-                          preserve_rng_state=False)
+        return checkpoint(run, x, drop_mask, SavedOutputs(names),
+                          use_reentrant=False, preserve_rng_state=False)
 
     return apply
 
 
-def _drop_masks(n: int, rate: float, generator: torch.Generator,
-                device) -> torch.Tensor:
-    """(2, n) keep masks, Bernoulli(1 - rate), drawn from ``generator``."""
-    u = torch.rand((2, n), generator=generator, device=generator.device)
+def _drop_masks(n: int, rate: float, generator: torch.Generator, device,
+                groups: int = 1,
+                batch_shard: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+    """(2, n) keep masks, Bernoulli(1 - rate), drawn from ``generator``.
+
+    With ``batch_shard = (rank, world)`` the ``n`` rows are this rank's
+    share of a global batch of ``n * world`` (``groups`` stacked streams
+    of it): every rank draws the global (2, n * world) masks from the same
+    generator state and keeps the columns of its own rows, so a
+    data-parallel run draws what one device draws at the global batch.
+    """
+    rank, world = batch_shard or (0, 1)
+    u = torch.rand((2, n * world), generator=generator,
+                   device=generator.device)
+    if world > 1:
+        u = u.reshape(2, groups, world, n // groups)[:, :, rank]
+        u = u.reshape(2, n)
     return (u >= rate).float().to(device)
 
 
@@ -387,12 +425,17 @@ def forward_encoder(model: InContextViT, imgs: torch.Tensor,
                     attn_impl: str = "kernel", train: bool = False,
                     generator: Optional[torch.Generator] = None,
                     remat: bool = False,
-                    remat_policy: str = "save_kernel") -> List[torch.Tensor]:
+                    remat_policy: str = "save_kernel",
+                    batch_shard: Optional[Tuple[int, int]] = None
+                    ) -> List[torch.Tensor]:
     """imgs/tgts (B, H, W, 3) NHWC -> tapped features (B, Hp, Wp, C).
 
     With ``train`` and a ``generator``, each block draws its drop-path
     masks before it runs, so a checkpointed block's recompute reuses
     them; ``remat`` checkpoints every block under ``remat_policy``.
+    ``batch_shard = (rank, world)`` says that the batch is this rank's
+    rows of a global batch sharded over ``world`` ranks: the drop-path
+    masks are then those of the global batch (:func:`_drop_masks`).
     """
     cfg = model.cfg
     dtype = cfg.compute_dtype
@@ -429,14 +472,17 @@ def forward_encoder(model: InContextViT, imgs: torch.Tensor,
     for i, ((ws, groups), blk) in enumerate(
             zip(_block_plan(cfg, merge_between_batch), model.blocks)):
         rate = float(dpr[i]) if train and generator is not None else 0.0
-        mask = (_drop_masks(x.shape[0], rate, generator, x.device)
+        # the two streams ride stacked on the batch axis up to the merge
+        mask = (_drop_masks(x.shape[0], rate, generator, x.device,
+                            groups=2 if i <= cfg.merge_idx else 1,
+                            batch_shard=batch_shard)
                 if rate > 0 else None)
         fn = functools.partial(block_apply, blk, cfg=cfg, window_size=ws,
                                ensemble_groups=groups,
                                ensemble_weights=ensemble_weights,
                                attn_impl=attn_impl, dpr=rate)
         if checkpointed:
-            x = _checkpointed(fn, remat_policy)(x, mask)
+            x = _checkpointed(fn, remat_policy, attn_impl)(x, mask)
         else:
             x = fn(x, drop_mask=mask)
         if i in cfg.residual_block_indexes:
@@ -545,14 +591,17 @@ def pixel_mask_from_patch_mask(bool_masked_pos: torch.Tensor,
     return m[..., None]
 
 
-def forward_loss(cfg: ModelConfig, pred: torch.Tensor, tgts: torch.Tensor,
+def loss_weights(cfg: ModelConfig, tgts: torch.Tensor,
                  bool_masked_pos: torch.Tensor,
                  valid: torch.Tensor) -> torch.Tensor:
-    """Masked, valid-weighted regression loss (models_painter.py:433-462)."""
-    pred = pred.float()
+    """(B, H, W, 3) per-pixel weights of the loss: the masked patches
+    times ``valid``, zero for a sample whose unmasked target is near
+    black (``near_black_check``). They depend on the inputs alone, so a
+    data-parallel step sums them over the ranks before the forward."""
     tgts = tgts.float()
     valid = valid.float()
-    mask = pixel_mask_from_patch_mask(bool_masked_pos, cfg, tgts.shape[1:3])
+    mask = pixel_mask_from_patch_mask(bool_masked_pos.reshape(
+        tgts.shape[0], -1), cfg, tgts.shape[1:3])
     if cfg.near_black_check:
         mean = torch.tensor(IMAGENET_MEAN, device=tgts.device)
         std = torch.tensor(IMAGENET_STD, device=tgts.device)
@@ -561,7 +610,20 @@ def forward_loss(cfg: ModelConfig, pred: torch.Tensor, tgts: torch.Tensor,
         ignore = unmasked_sum < 100.0 * 3
         valid = torch.where(ignore[:, None, None, None],
                             torch.zeros_like(valid), valid)
-    mask = mask * valid
+    return mask * valid
+
+
+def forward_loss(cfg: ModelConfig, pred: torch.Tensor, tgts: torch.Tensor,
+                 bool_masked_pos: torch.Tensor, valid: torch.Tensor,
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked, valid-weighted regression loss (models_painter.py:433-462):
+    the weighted sum over ``denom + eps``, where ``denom`` defaults to
+    the sum of this batch's :func:`loss_weights`. A data-parallel step
+    passes the sum over every rank's batch, so the ranks' losses add up
+    to the loss of the global batch."""
+    pred = pred.float()
+    tgts = tgts.float()
+    mask = loss_weights(cfg, tgts, bool_masked_pos, valid)
     diff = pred - tgts
     if cfg.loss_func == "l1l2":
         loss = (diff.abs() + diff ** 2) * 0.5
@@ -575,7 +637,9 @@ def forward_loss(cfg: ModelConfig, pred: torch.Tensor, tgts: torch.Tensor,
                            diff.abs() - 0.5 * beta)
     else:
         raise ValueError(cfg.loss_func)
-    return (loss * mask).sum() / (mask.sum() + cfg.loss_denom_eps)
+    if denom is None:
+        denom = mask.sum()
+    return (loss * mask).sum() / (denom + cfg.loss_denom_eps)
 
 
 def forward(model: InContextViT, imgs: torch.Tensor, tgts: torch.Tensor,
@@ -585,11 +649,13 @@ def forward(model: InContextViT, imgs: torch.Tensor, tgts: torch.Tensor,
             merge_between_batch: int = -1, attn_impl: str = "kernel",
             train: bool = False, generator: Optional[torch.Generator] = None,
             remat: bool = False, remat_policy: str = "save_kernel",
-            decoder_impl: str = "xla"):
+            decoder_impl: str = "xla",
+            batch_shard: Optional[Tuple[int, int]] = None,
+            loss_denom: Optional[torch.Tensor] = None):
     """Full forward -> (loss, patchified pred, bool_masked_pos), as
     ``models_painter.py:464-472`` (NHWC in and out); ``train`` and the
     rest as :func:`forward_encoder`, ``decoder_impl`` as
-    :func:`forward_decoder`."""
+    :func:`forward_decoder`, ``loss_denom`` as :func:`forward_loss`."""
     cfg = model.cfg
     b = imgs.shape[0]
     num_patches = (imgs.shape[1] // cfg.patch_size) * \
@@ -605,9 +671,11 @@ def forward(model: InContextViT, imgs: torch.Tensor, tgts: torch.Tensor,
                             merge_between_batch=merge_between_batch,
                             attn_impl=attn_impl, train=train,
                             generator=generator, remat=remat,
-                            remat_policy=remat_policy)
+                            remat_policy=remat_policy,
+                            batch_shard=batch_shard)
     pred = forward_decoder(model, feats, decoder_impl=decoder_impl)
-    loss = forward_loss(cfg, pred, tgts, bool_masked_pos, valid)
+    loss = forward_loss(cfg, pred, tgts, bool_masked_pos, valid,
+                        denom=loss_denom)
     return loss, patchify(pred.float(), cfg.patch_size), bool_masked_pos
 
 

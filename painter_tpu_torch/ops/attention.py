@@ -67,7 +67,7 @@ def attention(x: torch.Tensor, qkv_weight: torch.Tensor,
     bn = b * num_heads
     scale = head_dim ** -0.5
 
-    qkv = linear(x.reshape(b, length, c), qkv_weight, qkv_bias)
+    qkv = linear(x.reshape(b, length, c), qkv_weight, qkv_bias, "qkv")
     qkv = qkv.reshape(b, length, 3, num_heads, head_dim)
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (b, nh, L, hd)
     if rel_pos is not None:
@@ -85,5 +85,6 @@ def attention(x: torch.Tensor, qkv_weight: torch.Tensor,
     out, _ = _IMPLS[attn_impl](flat(q), flat(k), flat(v), rel_h, rel_w,
                                (h, w), scale)
     out = out.reshape(b, num_heads, length, head_dim).transpose(1, 2)
-    out = linear(out.reshape(b, length, c), proj_weight, proj_bias)
+    out = linear(out.reshape(b, length, c), proj_weight, proj_bias,
+                 "attn_out")
     return out.reshape(b, h, w, c)

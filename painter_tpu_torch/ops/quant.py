@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from painter_tpu_torch.kernels.int8_mlp import int8_matmul, int8_mlp
+from painter_tpu_torch.ops.remat import named_linear
 
 #: The quantized sites by default: the MLP gemms only (the JAX package's
 #: measured choice, ``quant.DEFAULT_TARGETS``)
@@ -135,17 +136,22 @@ def int8_linear(x: torch.Tensor, weight: Int8Weight,
     return (y + bias).to(x.dtype).reshape(*x.shape[:-1], -1)
 
 
-def linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor]
-           ) -> torch.Tensor:
+def linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor],
+           name: Optional[str] = None) -> torch.Tensor:
     """``x @ W.T + b``: int8 when ``weight`` is an :class:`Int8Weight`,
-    else the fp32 params cast to ``x.dtype`` at use.
+    else the fp32 params cast to ``x.dtype`` at use. A floating-point
+    linear with a ``name`` is one a remat policy can keep
+    (``ops/remat.py``).
 
     A floating-point ``weight`` is (out, in), the torch/reference layout.
     """
     if is_quantized(weight):
         return int8_linear(x, weight, bias)
-    return F.linear(x, weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype))
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if name is None:
+        return F.linear(x, w, b)
+    return named_linear(name, x, w, b)
 
 
 def mlp(x: torch.Tensor, fc1: nn.Module, fc2: nn.Module, gelu_approx: bool,
@@ -164,6 +170,6 @@ def mlp(x: torch.Tensor, fc1: nn.Module, fc2: nn.Module, gelu_approx: bool,
     if mlp_impl == "fused" and gelu_approx:
         return int8_mlp(x, fc1.weight.q, fc1.weight.scale, fc1.bias,
                         fc2.weight.q, fc2.weight.scale, fc2.bias)
-    h = linear(x, fc1.weight, fc1.bias)
+    h = linear(x, fc1.weight, fc1.bias, "mlp_fc1")  # the pre-activation
     h = F.gelu(h, approximate="tanh" if gelu_approx else "none")
-    return linear(h, fc2.weight, fc2.bias)
+    return linear(h, fc2.weight, fc2.bias, "mlp_fc2")

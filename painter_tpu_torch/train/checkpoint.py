@@ -10,7 +10,14 @@ MAE-init surgery, and save / auto-resume of the whole training state.
 - Save / auto-resume (``misc.py:296-378``; Orbax in the JAX package):
   ``{model, optimizer, step, epoch, generator}`` as
   ``<output_dir>/checkpoints/checkpoint-<step>.pth``, written to a
-  temporary name and renamed, the newest 3 kept.
+  temporary name and renamed, the newest 3 kept. Under
+  ``torch.distributed`` every rank gathers the whole optimizer state
+  (``LayerDecayAdamW.state_dict``), rank 0 alone writes it, and every rank
+  restores it and keeps its own slices, so a checkpoint resumes at any
+  world size; a barrier closes both.
+- ``export_torch_checkpoint`` (and ``python -m
+  painter_tpu_torch.train.checkpoint``): a training checkpoint's model as
+  a reference-format ``{"model": state_dict}`` ``.pth``.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import re
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from painter_tpu_torch.ops.resample import resize2d
 
@@ -82,18 +90,27 @@ def _steps(directory: str) -> List[int]:
     return sorted(found)
 
 
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def save_state(directory: str, step: int, epoch: int, model, optimizer,
                generator: torch.Generator) -> str:
-    """Write the training state for ``step``; keep the newest ``KEEP``."""
-    os.makedirs(directory, exist_ok=True)
+    """Write the training state for ``step``; keep the newest ``KEEP``.
+    Under ``torch.distributed`` every rank calls it (the optimizer state
+    is gathered) and rank 0 writes."""
     path = os.path.join(directory, f"checkpoint-{step}.pth")
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(), "step": step,
-                "epoch": epoch, "generator": generator.get_state()},
-               path + ".tmp")
-    os.replace(path + ".tmp", path)
-    for old in _steps(directory)[:-KEEP]:
-        os.remove(os.path.join(directory, f"checkpoint-{old}.pth"))
+    opt_state = optimizer.state_dict()
+    if not _distributed() or dist.get_rank() == 0:
+        os.makedirs(directory, exist_ok=True)
+        torch.save({"model": model.state_dict(), "optimizer": opt_state,
+                    "step": step, "epoch": epoch,
+                    "generator": generator.get_state()}, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        for old in _steps(directory)[:-KEEP]:
+            os.remove(os.path.join(directory, f"checkpoint-{old}.pth"))
+    if _distributed():
+        dist.barrier()
     return path
 
 
@@ -101,6 +118,8 @@ def restore_state(directory: str, model, optimizer,
                   generator: torch.Generator) -> Optional[int]:
     """Load the newest checkpoint into model, optimizer and generator;
     returns its step, or None when there is none (``--auto_resume``)."""
+    if _distributed():
+        dist.barrier()  # every rank sees the same newest checkpoint
     steps = _steps(directory)
     if not steps:
         return None
@@ -111,3 +130,33 @@ def restore_state(directory: str, model, optimizer,
     optimizer.load_state_dict(state["optimizer"])
     generator.set_state(state["generator"])
     return int(state["step"])
+
+
+def export_torch_checkpoint(path: str, out_path: str) -> None:
+    """A training checkpoint's model -> a reference-format ``.pth``
+    (``{"model": state_dict}``, the reference's parameter names), so
+    weights trained here load in the original torch codebase."""
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    torch.save({"model": state["model"]}, out_path)
+
+
+def _export_cli(argv=None):
+    import argparse
+    p = argparse.ArgumentParser("painter_tpu_torch checkpoint export")
+    p.add_argument("--ckpt_dir", required=True,
+                   help="the trainer's <output_dir>/checkpoints")
+    p.add_argument("--step", type=int, default=None,
+                   help="default: the newest checkpoint")
+    p.add_argument("--out", required=True, help="output .pth path")
+    args = p.parse_args(argv)
+    steps = _steps(args.ckpt_dir)
+    step = args.step if args.step is not None or not steps else steps[-1]
+    if step not in steps:
+        raise SystemExit(f"no checkpoint {step or ''} in {args.ckpt_dir}")
+    export_torch_checkpoint(
+        os.path.join(args.ckpt_dir, f"checkpoint-{step}.pth"), args.out)
+    print(f"exported step {step} -> {args.out}")
+
+
+if __name__ == "__main__":
+    _export_cli()

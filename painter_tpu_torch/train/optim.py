@@ -21,8 +21,10 @@ import re
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from painter_tpu_torch.configs import ModelConfig
+from painter_tpu_torch.parallel.mesh import local_slice, param_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,17 +105,51 @@ class LayerDecayAdamW:
     ``step()`` reads the parameters' ``.grad``, returns the global norm
     before clipping (a 0-d device tensor: no host sync), and advances the
     update count that the schedule reads.
+
+    With a ``mesh`` whose ``fsdp`` dim is larger than 1, each rank keeps
+    the AdamW moments of, and updates, only its slice of each parameter
+    along the dim ``parallel.mesh.param_dim`` picks (parameters without
+    one are updated whole on every rank); the updated slices are then
+    all-gathered into the whole parameter within the fsdp group, in one
+    bucket. AdamW is elementwise, so this is the unsharded update. The
+    gradients the norm and the clip read are the whole reduced ones, the
+    same on every rank. The parameters themselves stay whole between
+    updates (JAX keeps them sharded as well: a memory-only difference).
     """
 
     def __init__(self, model: torch.nn.Module, cfg: ModelConfig,
-                 oc: OptimConfig):
+                 oc: OptimConfig, mesh=None):
         self.oc = oc
         self.schedule = cosine_warmup_schedule(oc)
         self.groups = param_groups(model, cfg, oc.weight_decay,
                                    oc.layer_decay)
-        self.adamw = torch.optim.AdamW(self.groups, lr=oc.lr,
+        self.fsdp_group, self.fsdp_size, self.fsdp_rank = None, 1, 0
+        if mesh is not None and mesh["fsdp"].size() > 1:
+            self.fsdp_group = mesh.get_group("fsdp")
+            self.fsdp_size = mesh["fsdp"].size()
+            self.fsdp_rank = mesh.get_local_rank("fsdp")
+        # per parameter, in the optimizer's order: the sharded dim or None
+        self.dims = [param_dim(name, p.shape, self.fsdp_size)
+                     for g in self.groups
+                     for name, p in zip(g["names"], g["params"])]
+        dims = iter(self.dims)
+        self.shards: List[Optional[torch.Tensor]] = []
+        adam_groups = []
+        for g in self.groups:
+            members = []
+            for p in g["params"]:
+                d = next(dims)
+                shard = None if d is None else self._slice(p.detach(), d) \
+                    .clone()
+                self.shards.append(shard)
+                members.append(p if shard is None else shard)
+            adam_groups.append({**g, "params": members})
+        self.adamw = torch.optim.AdamW(adam_groups, lr=oc.lr,
                                        betas=oc.betas, eps=oc.eps)
         self.count = 0
+
+    def _slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return local_slice(t, dim, self.fsdp_size, self.fsdp_rank)
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -121,6 +157,8 @@ class LayerDecayAdamW:
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
     def step(self) -> torch.Tensor:
         params = [p for p in self.params if p.grad is not None]
@@ -133,16 +171,67 @@ class LayerDecayAdamW:
                                  torch.ones_like(norm),
                                  self.oc.clip_grad / norm)
             torch._foreach_mul_(grads, factor)
+        for p, d, shard in zip(self.params, self.dims, self.shards):
+            if shard is not None:
+                shard.grad = (None if p.grad is None
+                              else self._slice(p.grad, d).contiguous())
         lr = self.schedule(self.count)
         for g in self.adamw.param_groups:
             g["lr"] = lr * g["lr_scale"]
         self.adamw.step()
+        self._gather()
         self.count += 1
         return norm
 
+    def _gather(self) -> None:
+        """The updated slices -> the whole parameters, one all-gather."""
+        pairs = [(p, d, s) for p, d, s in
+                 zip(self.params, self.dims, self.shards) if s is not None]
+        if not pairs:
+            return
+        flat = torch.cat([s.detach().reshape(-1) for _, _, s in pairs])
+        parts = [torch.empty_like(flat) for _ in range(self.fsdp_size)]
+        dist.all_gather(parts, flat, group=self.fsdp_group)
+        sizes = [s.numel() for _, _, s in pairs]
+        with torch.no_grad():
+            for r, part in enumerate(parts):
+                for (p, d, s), piece in zip(pairs, part.split(sizes)):
+                    local_slice(p, d, self.fsdp_size, r).copy_(
+                        piece.view_as(s))
+
     def state_dict(self) -> Dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count}
+        """The whole optimizer state, the same at every fsdp size (the
+        moments of sharded parameters gathered over the fsdp group: every
+        rank of it must call this)."""
+        sd = self.adamw.state_dict()
+        for i, (d, shard) in enumerate(zip(self.dims, self.shards)):
+            if shard is None or i not in sd["state"]:
+                continue
+            st = dict(sd["state"][i])
+            for key in ("exp_avg", "exp_avg_sq"):
+                parts = [torch.empty_like(st[key])
+                         for _ in range(self.fsdp_size)]
+                dist.all_gather(parts, st[key].contiguous(),
+                                group=self.fsdp_group)
+                st[key] = torch.cat(parts, dim=d)
+            sd["state"][i] = st
+        return {"adamw": sd, "count": self.count}
 
     def load_state_dict(self, state: Dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        """Load a whole state (any fsdp size wrote it): each rank keeps
+        its slices, and the shards are re-cut from the parameters."""
+        sd = state["adamw"]
+        sd = {**sd, "state": dict(sd["state"])}
+        for i, d in enumerate(self.dims):
+            if d is None or i not in sd["state"]:
+                continue
+            st = dict(sd["state"][i])
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key] = self._slice(st[key], d).clone()
+            sd["state"][i] = st
+        with torch.no_grad():
+            for p, d, shard in zip(self.params, self.dims, self.shards):
+                if shard is not None:
+                    shard.copy_(self._slice(p, d))
+        self.adamw.load_state_dict(sd)
         self.count = int(state["count"])

@@ -5,12 +5,23 @@ The flags and flow of ``painter_tpu/train/train.py`` (itself mirroring
 surgery, mixture dataset, weighted sampler, per-update cosine lr with
 warmup, AdamW + layer decay, gradient accumulation, grad-clip 3.0, epoch
 loop with masked-loss validation, checkpoint save / auto-resume, JSON-lines
-log, NaN watchdog (engine_train.py:70-72). One process on one device: the
-trainer runs on ``cuda`` unless ``--platform cpu`` is given. Options that
-name something not ported yet raise instead of being ignored.
+log, NaN watchdog (engine_train.py:70-72). The trainer runs on ``cuda``
+unless ``--platform cpu`` is given.
+
+Without ``--distributed`` it is one process on one device. With it, one
+process per device (PyTorch's idiom; the JAX trainer's
+``jax.distributed.initialize``): NCCL on ``cuda:{LOCAL_RANK}``, gloo under
+``--platform cpu``, the ranks on a ``("dp", "fsdp")`` mesh
+(``parallel/mesh.py``, ``--n_fsdp`` ranks per fsdp group), each loading
+its shard of the weighted draw, the update data-parallel over the global
+batch (``train/step.py``); log lines, ``log.txt``, ``scalars.jsonl``,
+panels and checkpoints come from rank 0, the meters are summed over the
+ranks at the end of each epoch.
 
 Run: python -m painter_tpu_torch.train.train --json_path a.json \\
     --data_path datasets/ --output_dir out/ [--finetune mae.pth] ...
+Multi-GPU: torchrun --nproc_per_node N -m painter_tpu_torch.train.train \\
+    --distributed ...
 """
 from __future__ import annotations
 
@@ -22,10 +33,9 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
-# the JAX trainer's remat policies; the port has "full" and "save_kernel"
-_JAX_REMAT_POLICIES = ["full", "save_attn", "save_kernel", "save_kernel_attn",
-                       "save_kernel_mlp", "save_attn_mlp", "save_dots"]
+from painter_tpu_torch.models.incontext_vit import REMAT_POLICIES
 
 
 def get_args_parser():
@@ -67,15 +77,23 @@ def get_args_parser():
     p.add_argument("--loss_func", default="smoothl1")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--n_fsdp", default=1, type=int,
-                   help="fsdp size; the port trains on one device (1)")
+                   help="fsdp mesh dim size: ranks that shard the AdamW "
+                        "moments and update between them; divides the "
+                        "world size")
     p.add_argument("--remat", action=argparse.BooleanOptionalAction,
                    default=True, help="per-block activation checkpointing")
     p.add_argument("--remat_policy", default="save_kernel",
-                   choices=_JAX_REMAT_POLICIES,
+                   choices=REMAT_POLICIES,
                    help="'save_kernel' (default) keeps the attention "
                         "kernel's out + lse, so the backward's recompute "
                         "skips the attention forward; 'full' recomputes "
-                        "the whole block. The others are not ported")
+                        "the whole block; 'save_attn' keeps the post-proj "
+                        "attention output, 'save_kernel_attn' / "
+                        "'save_kernel_mlp' add it / the fc1 "
+                        "pre-activation to 'save_kernel', "
+                        "'save_attn_mlp' keeps both, 'save_dots' the "
+                        "outputs of qkv, proj, fc1 and fc2 "
+                        "(models/incontext_vit.py)")
     p.add_argument("--attn_impl", default="kernel", choices=["kernel", "plain"],
                    help="'kernel': the CUDA attention kernels on the card "
                         "(their plain versions on the CPU); 'plain': plain "
@@ -94,8 +112,13 @@ def get_args_parser():
     p.add_argument("--num_workers", default=None, type=int,
                    help="data worker processes (default min(8, cores-1))")
     p.add_argument("--distributed", action="store_true", default=False,
-                   help="multi-process training: not ported")
-    p.add_argument("--coordinator", default=None)
+                   help="one process per device over torch.distributed "
+                        "(NCCL; gloo under --platform cpu); the rendezvous "
+                        "from --coordinator / --num_processes / "
+                        "--process_id, else from torchrun's environment")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 (or an init URL such as "
+                        "file:///path); default: torchrun's MASTER_ADDR")
     p.add_argument("--num_processes", default=None, type=int)
     p.add_argument("--process_id", default=None, type=int)
     p.add_argument("--platform", default=None,
@@ -103,23 +126,65 @@ def get_args_parser():
     return p
 
 
-def _refuse_unported(args) -> None:
-    if args.distributed or args.n_fsdp > 1:
-        raise NotImplementedError(
-            "multi-GPU training (--distributed, --n_fsdp > 1) is not ported "
-            "yet: the port trains on one device")
-    if args.remat_policy not in ("full", "save_kernel"):
-        raise NotImplementedError(
-            f"--remat_policy {args.remat_policy} is not ported yet; the port "
-            f"has full and save_kernel")
+def _init_distributed(args):
+    """Join the process group -> (rank, world, device). From
+    ``--coordinator`` / ``--num_processes`` / ``--process_id`` when
+    given, else from torchrun's ``MASTER_ADDR`` / ``RANK`` /
+    ``WORLD_SIZE`` / ``LOCAL_RANK``; NCCL on ``cuda:{LOCAL_RANK}`` (the
+    process id modulo the cards when no launcher set it), gloo on the
+    host under ``--platform cpu``."""
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            raise ValueError("--coordinator needs --num_processes and "
+                             "--process_id")
+        init = (args.coordinator if "://" in args.coordinator
+                else f"tcp://{args.coordinator}")
+        rank, world = args.process_id, args.num_processes
+    else:
+        init = "env://"
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if args.platform == "cpu":
+        backend, device = "gloo", torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("--distributed trains on CUDA devices over "
+                               "NCCL; pass --platform cpu for gloo")
+        local = int(os.environ.get("LOCAL_RANK",
+                                   rank % torch.cuda.device_count()))
+        backend, device = "nccl", torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            device_id=device if backend == "nccl" else None)
+    return rank, world, device
 
 
 def main(args=None):
     """Train; returns {"model", "optimizer", "step"}."""
     if args is None:  # console-script entry point
         args = get_args_parser().parse_args()
-    _refuse_unported(args)
+    if not args.distributed and args.n_fsdp > 1:
+        raise ValueError(f"--n_fsdp {args.n_fsdp} does not divide the world "
+                         "of one process; pass --distributed")
+    if not args.distributed:
+        return _train(args, None)
+    import builtins
+    from painter_tpu_torch.utils.logging import setup_for_distributed
+    own_print = builtins.print
+    rank, world, device = _init_distributed(args)
+    try:
+        # reference: silence print on non-master ranks (misc.py:152-168)
+        setup_for_distributed(rank == 0)
+        print(f"process {rank}/{world} ({device})", force=True)
+        return _train(args, device)
+    finally:
+        builtins.print = own_print
+        dist.destroy_process_group()
 
+
+def _train(args, device):
+    """The training loop; ``device`` is the rank's device under
+    ``torch.distributed``, None for one process."""
     from painter_tpu_torch import configs
     from painter_tpu_torch.data import pairdataset as pd
     from painter_tpu_torch.device import resolve_device
@@ -131,7 +196,22 @@ def main(args=None):
                                                  append_log_line,
                                                  dump_sample_panel)
 
-    device = resolve_device(args.platform)
+    distributed = device is not None
+    rank, world = ((dist.get_rank(), dist.get_world_size()) if distributed
+                   else (0, 1))
+    master = rank == 0
+    mesh = None
+    if distributed:
+        from painter_tpu_torch.parallel.mesh import make_mesh
+        if world % args.n_fsdp:
+            raise ValueError(f"--n_fsdp {args.n_fsdp} does not divide the "
+                             f"world size {world}")
+        mesh = make_mesh(world // args.n_fsdp, args.n_fsdp,
+                         device_type=device.type)
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+              f"on {device.type}")
+    else:
+        device = resolve_device(args.platform)
     cfg = configs.get_config(
         args.model, img_size=tuple(args.input_size),
         drop_path_rate=args.drop_path, loss_func=args.loss_func,
@@ -159,12 +239,16 @@ def main(args=None):
                                        num_mask_patches=args.num_mask_patches,
                                        patch_size=cfg.patch_size)
                    if args.val_json_path else None)
-    sampler = pd.WeightedMixtureSampler(dataset.weights, seed=args.seed)
+    # each rank loads its shard of the weighted draw
+    # (DistributedSamplerWrapper semantics, data/sampler.py)
+    sampler = pd.WeightedMixtureSampler(dataset.weights, num_replicas=world,
+                                        rank=rank, seed=args.seed)
 
-    steps_per_epoch = len(dataset) // (args.batch_size * args.accum_iter)
+    global_batch = args.batch_size * world
+    steps_per_epoch = len(dataset) // (global_batch * args.accum_iter)
     if args.max_steps_per_epoch > 0:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
-    print(f"effective batch {args.batch_size * args.accum_iter}, "
+    print(f"effective batch {global_batch * args.accum_iter}, "
           f"{steps_per_epoch} updates/epoch")
 
     oc = optim.OptimConfig(
@@ -172,13 +256,14 @@ def main(args=None):
         layer_decay=args.layer_decay, clip_grad=args.clip_grad,
         warmup_epochs=args.warmup_epochs, epochs=args.epochs,
         steps_per_epoch=max(steps_per_epoch, 1))
-    optimizer = optim.LayerDecayAdamW(model, cfg, oc)
+    optimizer = optim.LayerDecayAdamW(model, cfg, oc, mesh=mesh)
     train_step = step_lib.make_train_step(
         cfg, optimizer, accum_iter=args.accum_iter, remat=args.remat,
         remat_policy=args.remat_policy, attn_impl=args.attn_impl,
-        decoder_impl=args.decoder_impl)
+        decoder_impl=args.decoder_impl, mesh=mesh)
     eval_step = step_lib.make_eval_step(cfg, attn_impl=args.attn_impl)
-    # drop-path masks; saved and restored with the checkpoints
+    # drop-path masks (the same draws on every rank: each keeps its rows'
+    # columns); saved and restored with the checkpoints
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
 
     ckpt_dir = os.path.abspath(os.path.join(args.output_dir, "checkpoints"))
@@ -189,7 +274,7 @@ def main(args=None):
         if resumed is not None:
             start_epoch = resumed // max(steps_per_epoch, 1)
             print(f"auto-resumed from step {resumed} (epoch {start_epoch})")
-    scalar_writer = ScalarWriter(args.output_dir)
+    scalar_writer = ScalarWriter(args.output_dir) if master else None
 
     def put_batch(batch):
         return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
@@ -212,9 +297,10 @@ def main(args=None):
                     sys.exit(1)
                 gn = float(mt["grad_norm"])
                 logger.update(loss=loss_v, grad_norm=gn)
-                scalar_writer.write(gstep, gstep / max(steps_per_epoch, 1),
-                                    loss=loss_v, grad_norm=gn,
-                                    lr=optimizer.schedule(gstep))
+                if scalar_writer is not None:
+                    scalar_writer.write(
+                        gstep, gstep / max(steps_per_epoch, 1), loss=loss_v,
+                        grad_norm=gn, lr=optimizer.schedule(gstep))
             pending.clear()
 
         for step_idx, batch in enumerate(logger.log_every(
@@ -222,7 +308,8 @@ def main(args=None):
                 header=f"Epoch [{epoch}]", total=steps_per_epoch)):
             batch = put_batch(batch)
             gstep = epoch * steps_per_epoch + step_idx
-            if args.panel_freq > 0 and gstep % args.panel_freq == 0:
+            if master and args.panel_freq > 0 and \
+                    gstep % args.panel_freq == 0:
                 mb = ({k: v[0] for k, v in batch.items()}
                       if args.accum_iter > 1 else batch)
                 with torch.no_grad():
@@ -239,12 +326,15 @@ def main(args=None):
                 drain_metrics()
         it.close()
         drain_metrics()
+        # cross-process meter reduction (misc.py:43-54 role)
+        logger.synchronize_between_processes()
         stats = {f"train_{k}": v for k, v in logger.summary().items()}
 
         if val_dataset is not None:
             vlogger = MetricLogger()
-            vsampler = pd.WeightedMixtureSampler(val_dataset.weights,
-                                                 seed=args.seed)
+            vsampler = pd.WeightedMixtureSampler(
+                val_dataset.weights, num_replicas=world, rank=rank,
+                seed=args.seed)
             vit = pd.data_iterator(val_dataset, vsampler, args.batch_size,
                                    epoch, seed=args.seed,
                                    num_workers=args.num_workers)
@@ -254,17 +344,20 @@ def main(args=None):
                 m = eval_step(model, put_batch(batch))
                 vlogger.update(loss=float(m["loss"]))
             vit.close()
+            vlogger.synchronize_between_processes()
             stats.update({f"val_{k}": v for k, v in
                           vlogger.summary().items()})
 
         stats.update({"epoch": epoch,
                       "epoch_time_s": round(time.time() - t_epoch, 1)})
         print(stats, flush=True)
-        append_log_line(args.output_dir, stats)
+        if master:  # main_train.py:379 master-only log
+            append_log_line(args.output_dir, stats)
         if (epoch + 1) % args.save_freq == 0 or epoch + 1 == args.epochs:
             ckpt_lib.save_state(ckpt_dir, optimizer.count, epoch, model,
                                 optimizer, generator)
-    scalar_writer.close()
+    if scalar_writer is not None:
+        scalar_writer.close()
     return {"model": model, "optimizer": optimizer, "step": optimizer.count}
 
 

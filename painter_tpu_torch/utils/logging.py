@@ -1,9 +1,12 @@
-"""Metric logging for the port's trainer (single process).
+"""Metric logging for the port's trainer.
 
-The PyTorch port's copy of ``painter_tpu/utils/logging.py`` without its
-multi-process parts. ``SmoothedValue``/``MetricLogger`` behavior from
-``Painter/util/misc.py:25-168``: windowed + global averages, periodic log
-lines with ETA and iter/data timing; the JSON-lines epoch log
+The PyTorch port's copy of ``painter_tpu/utils/logging.py``, its
+multi-process parts over ``torch.distributed``. ``SmoothedValue`` /
+``MetricLogger`` behavior from ``Painter/util/misc.py:25-168``: windowed +
+global averages, periodic log lines with ETA and iter/data timing, the
+meters summed over processes (``synchronize_between_processes``), print
+silenced on the non-master ranks (``setup_for_distributed``); the
+JSON-lines epoch log
 (``main_train.py:375-383``), the per-step scalar stream with a
 TensorBoard event file beside it, and the sample panels
 (``engine_train.py:104-139``).
@@ -18,8 +21,11 @@ from collections import defaultdict, deque
 from typing import Dict, Iterable, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from painter_tpu_torch.configs import IMAGENET_MEAN, IMAGENET_STD
+from painter_tpu_torch.parallel.mesh import collective_device
 from painter_tpu_torch.utils.tb_writer import EventWriter
 
 
@@ -110,6 +116,43 @@ class MetricLogger:
 
     def summary(self) -> Dict[str, float]:
         return {k: m.global_avg for k, m in self.meters.items()}
+
+    def synchronize_between_processes(self) -> None:
+        """Sum each meter's (count, total) over the ranks -- the
+        reference's ``SmoothedValue.synchronize_between_processes``
+        (misc.py:43-54). The windowed deque stays local, as there."""
+        if not _distributed():
+            return
+        names = sorted(self.meters)
+        local = torch.tensor([[self.meters[n].count, self.meters[n].total]
+                              for n in names], dtype=torch.float64,
+                             device=collective_device())
+        dist.all_reduce(local)
+        for n, (count, total) in zip(names, local.tolist()):
+            self.meters[n].count = int(count)
+            self.meters[n].total = float(total)
+
+
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
+
+
+def setup_for_distributed(is_master: bool) -> None:
+    """Silence builtin print on non-master processes (misc.py:152-168).
+
+    As in the reference, ``print(..., force=True)`` still prints
+    everywhere -- used for per-process rendezvous diagnostics."""
+    import builtins
+    builtin_print = getattr(builtins.print, "_builtin", builtins.print)
+
+    def print_fn(*args, **kwargs):
+        force = kwargs.pop("force", False)
+        if is_master or force:
+            builtin_print(*args, **kwargs)
+
+    print_fn._builtin = builtin_print
+    builtins.print = print_fn
 
 
 def append_log_line(output_dir: str, stats: Dict) -> None:

@@ -384,11 +384,15 @@ def test_main_writes_the_files_jax_writes(synth, tmp_path, monkeypatch):
     assert png.mode == Image.open(tmp_path / "jax" / "im0.png").mode
 
 
-def test_refusals(synth):
+def test_refusals(synth, monkeypatch):
     argv = _argv(synth, "ade20k_semseg", synth / "unused")
-    with pytest.raises(NotImplementedError, match="--n_dp 2"):
-        tre.build_model(tre.get_args_parser().parse_args(
-            argv + ["--n_dp", "2", "--device", "cpu"]))
+    # --n_dp above the local card count (one card, as JAX's check)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="--n_dp 2 > 1 local devices"):
+            tre.build_model(tre.get_args_parser().parse_args(
+                argv + ["--n_dp", "2", "--device", "cuda"]))
     # no card here: the default device is cuda, and it raises
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tre.build_model(tre.get_args_parser().parse_args(argv))
@@ -406,6 +410,25 @@ def test_refusals(synth):
     from painter_tpu_torch.ops.nms import mask_matrix_nms
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mask_matrix_nms(np.ones((2, 4, 4)), np.zeros(2), np.ones(2))
+
+
+def test_n_dp_paints_what_one_device_paints(synth, painted):
+    """``--n_dp 2 --device cpu`` (two replicas, each painting its half of
+    every batch of 2, the ragged tail padded) paints the PNGs of
+    ``--n_dp 1``, as the JAX run_eval's dp case does; the model's
+    ``--batch_size 1`` takes the batched path under a mesh, as in JAX."""
+    _, _, ta, outs = painted("ade20k_semseg", 2)
+    for bs in ("2", "1"):
+        args = tre.get_args_parser().parse_args(_argv(
+            synth, "ade20k_semseg", synth / f"port_dp_{bs}",
+            ["--batch_size", bs, "--n_dp", "2", "--device", "cpu"]))
+        model = tre.build_model(args)
+        assert model.n_dp == 2 and model.mesh == [torch.device("cpu")] * 2
+        got = tre.paint_predictions(args, model)
+        assert len(got) == len(outs) == 3
+        for (_, a), (_, b) in zip(got, outs):
+            np.testing.assert_array_equal(np.asarray(Image.open(a)),
+                                          np.asarray(Image.open(b)))
 
 
 def test_cli_flags_match_jax():

@@ -98,13 +98,17 @@ def _counting_plain_fwd(monkeypatch):
 
 
 @pytest.mark.parametrize("remat,policy,fwd_calls", [
-    (False, "save_kernel", 6), (True, "full", 12), (True, "save_kernel", 6)])
+    (False, "save_kernel", 6), (True, "full", 12), (True, "save_kernel", 6),
+    (True, "save_attn", 12), (True, "save_kernel_attn", 6),
+    (True, "save_kernel_mlp", 6), (True, "save_attn_mlp", 12),
+    (True, "save_dots", 12)])
 def test_remat_policies_same_grads_and_attention_calls(monkeypatch, remat,
                                                        policy, fwd_calls):
-    """With drop-path on, full and save_kernel remat give the gradients of
-    no remat (the masks are drawn outside each checkpointed block); the
-    attention forward runs once per block under save_kernel and twice
-    under full."""
+    """With drop-path on, every remat policy gives the gradients of no
+    remat, bit for bit (the masks are drawn outside each checkpointed
+    block, and a kept tensor is the one the forward made); the attention
+    forward runs once per block under the save_kernel policies and twice
+    under the others, whose recompute must regenerate its residuals."""
     cfg = tcfg.tiny_test_config(drop_path_rate=0.5)
     params = jax_params_np(jcfg.tiny_test_config(), seed=5)
     b = _batch(cfg, 2, seed=6)
@@ -135,11 +139,14 @@ def test_remat_policies_same_grads_and_attention_calls(monkeypatch, remat,
 
 
 def test_unported_remat_policy_raises():
+    """Every JAX policy is ported; a name that is none of them raises."""
     cfg = tcfg.tiny_test_config()
     oc = toptim.OptimConfig()
     opt = toptim.LayerDecayAdamW(tm.build_model(cfg, device="cpu"), cfg, oc)
-    with pytest.raises(ValueError, match="not ported"):
-        tstep.make_train_step(cfg, opt, remat_policy="save_dots")
+    for policy in tm.REMAT_POLICIES:
+        tstep.make_train_step(cfg, opt, remat_policy=policy)
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        tstep.make_train_step(cfg, opt, remat_policy="save_everything")
 
 
 def _oc(module, **kw):
@@ -396,14 +403,22 @@ def test_toy_training_run(toy_data, tmp_path):
         assert torch.equal(v, before[k]), k
 
 
-@pytest.mark.parametrize("flags,match", [
-    (("--n_fsdp", "2"), "multi-GPU"),
-    (("--distributed",), "multi-GPU"),
-    (("--remat_policy", "save_attn"), "remat_policy"),
+@pytest.mark.parametrize("flags,error,match", [
+    (("--n_fsdp", "2"), ValueError, "does not divide"),
+    (("--distributed", "--platform", "cuda"), RuntimeError, "NCCL"),
+    (("--remat_policy", "save_everything"), SystemExit, "2"),
 ])
-def test_unported_options_raise(toy_data, tmp_path, flags, match):
+def test_unported_options_raise(toy_data, tmp_path, monkeypatch, flags,
+                                error, match):
+    """What the CLI still refuses, before it writes anything: --n_fsdp
+    that does not divide the world (one process here), --distributed on
+    CUDA without a card (NCCL needs one; gloo takes --platform cpu), and
+    a remat policy that is none of JAX's."""
     root, jp = toy_data
-    with pytest.raises(NotImplementedError, match=match):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(error, match=match):
         ttrain.main(_cli_args(root, jp, str(tmp_path / "run"), *flags))
     assert not os.path.exists(tmp_path / "run")
 

@@ -61,3 +61,40 @@ def stitched_batch(cfg, n, seed):
     mask = np.zeros((n, length), np.float32)
     mask[:, length // 2:] = 1.0
     return imgs, tgts, mask
+
+
+REMAT_GRAD_RTOL = 1e-4
+
+
+def remat_grads_match_jax(params, policy):
+    """The port's loss and gradients under remat ``policy`` (drop-path 0,
+    fp32) == ``jax.value_and_grad`` of the JAX forward under the same
+    policy: loss 1e-5 relative, each gradient 1e-4 x its own max abs."""
+    from painter_tpu import configs as jcfg
+    from painter_tpu_torch import configs as tcfg
+    cfg_j, cfg_t = jcfg.tiny_test_config(), tcfg.tiny_test_config()
+    imgs, tgts, mask = stitched_batch(cfg_j, 2, 42)
+    valid = np.ones_like(tgts)
+    valid[:, :4] = 0.0
+
+    def loss_fn(p):
+        return jm.forward(p, cfg_j, imgs, tgts, mask, valid, train=True,
+                          rng=jax.random.PRNGKey(0), attn_impl="xla",
+                          remat=True,
+                          remat_policy=None if policy == "full" else policy
+                          )[0]
+
+    loss_j, grads_j = jax.jit(jax.value_and_grad(loss_fn))(params)
+    model = port_model(cfg_t, params).train()
+    loss_t, _, _ = tm.forward(model, t(imgs), t(tgts), t(mask), t(valid),
+                              train=True, remat=True, remat_policy=policy,
+                              generator=torch.Generator().manual_seed(0))
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j),
+                               rtol=1e-5)
+    ref = {k: v.numpy() for k, v in convert.state_dict_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, grads_j), cfg_t).items()}
+    for name, p in model.named_parameters():
+        err = np.abs(p.grad.numpy() - ref[name]).max()
+        assert err <= REMAT_GRAD_RTOL * max(np.abs(ref[name]).max(), 1e-30), \
+            (name, err)
