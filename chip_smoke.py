@@ -31,7 +31,16 @@ micro-step of Painter ViT-L under each of the seven remat policies,
 held to the non-distributed one's bits), and two gloo ranks on the one
 card (spawned as ``chip_smoke.py --gloo-rank R --store FILE --out FILE``;
 NCCL refuses two ranks on one device), fsdp 2 and dp 2 against one
-process at the global batch. Checks that each path went through its
+process at the global batch. Last the training-data front end: synthetic
+raw COCO panoptic and person keypoints, ADE20K and SIDD in their own
+formats and sizes, through the port's prep CLI in subprocesses (the
+instance and pose generators resizing and warping on the card, held to
+the same generators on the CPU, their targets decoded back to the
+annotations), the seccrop transform's host time with the native resize
+and the dense one in turns, ``train.main`` of Painter ViT-L on the
+generated sets with two spawned workers on the native ops, and
+``python -m painter_tpu_torch.dryrun 2 --procs 2`` on the card. Checks
+that each path went through its
 kernels, and that K2, K3, K4 and K5 give the same bits on two runs of the
 same inputs. Prints its findings, then a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -109,10 +118,11 @@ def card_label():
 
 
 def phase_build():
-    """Every kernel source at once, one nvcc process each."""
+    """Every kernel source at once, one nvcc process each, beside the
+    data workers' host library (g++)."""
     from painter_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    paths = build.build_all()
+    paths = build.build_all(build.SOURCES + build.HOST_SOURCES)
     print(f"# build {', '.join(paths)}: {time.perf_counter() - t0:.2f} s")
     for name, path in paths.items():
         with open(path[:-3] + ".log") as f:
@@ -2378,6 +2388,583 @@ def phase_gloo_ranks(label):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the data front end: raw datasets -> prep CLI -> training
+# ---------------------------------------------------------------------------
+
+# Counts cut for time; the shapes are the datasets': COCO 640x480 images
+# (panoptic and person keypoints), ADE20K 512x683, SIDD Medium sRGB
+# 3000x5328 pairs, instance copies at 1024^2, pose crops at 256x192.
+FE_SEED = 40
+FE_PAN_IMAGES = 4        # the last one without things
+FE_ADE_IMAGES = 6
+FE_SIDD_SCENES, FE_SIDD_HW, FE_SIDD_PATCHES = 2, (3000, 5328), 8  # 300
+FE_INST_AUG, FE_POSE_AUG = 2, 2                                   # 30, 20
+FE_TOY_N = 4             # pairs per task in the training set
+FE_UPDATES, FE_ACCUM, FE_BATCH, FE_WORKERS = 3, 2, 2, 2
+# the seccrop transform's host time, native against the numpy dense path
+FE_SECCROP_SAMPLES = 6
+# pose decode of an unaugmented crop, in crop pixels (as
+# tests/test_trainset_gen.py's 1.5 px at a 0.46 px crop stride)
+FE_POSE_DECODE_PX = 1.5
+
+
+def _fe_panoptic(root, rng):
+    """COCO panoptic: images/*.jpg (640x480), panoptic/*.png (id = R + 256
+    G), panoptic.json with 80 thing and 53 stuff categories; every image
+    with a stuff background, image 0 with a crowd thing, the last with no
+    things."""
+    import os
+    from PIL import Image
+    os.makedirs(f"{root}/images")
+    os.makedirs(f"{root}/panoptic")
+    h, w = 480, 640
+    cats = [{"id": 1 + i, "name": f"thing{i}", "isthing": 1}
+            for i in range(80)] + \
+        [{"id": 92 + i, "name": f"stuff{i}", "isthing": 0}
+         for i in range(53)]
+    images, anns = [], []
+    for i in range(FE_PAN_IMAGES):
+        Image.fromarray(_smooth_u8(rng, (h, w))).save(
+            f"{root}/images/{i:012d}.jpg", quality=90)
+        ids = np.full((h, w), 1000 + i, np.uint32)
+        segs = [{"id": 1000 + i, "category_id": 92 + int(rng.randint(53)),
+                 "iscrowd": 0}]
+        n_things = 0 if i == FE_PAN_IMAGES - 1 else 3
+        for t in range(n_things):
+            y0, x0 = 20 + 130 * t, 30 + 190 * t
+            hh, ww = 120 + int(rng.randint(60)), 140 + int(rng.randint(60))
+            yy, xx = np.mgrid[0:hh, 0:ww]
+            ell = ((yy - hh / 2) / (hh / 2)) ** 2 + \
+                ((xx - ww / 2) / (ww / 2)) ** 2 <= 1
+            seg_id = 256 * (t + 1) + 7 * i + 3  # ids past one byte
+            ids[y0:y0 + hh, x0:x0 + ww][ell] = seg_id
+            segs.append({"id": seg_id, "category_id": 1 + int(
+                rng.randint(80)), "iscrowd": int(i == 0 and t == 2)})
+        png = np.stack([ids % 256, (ids // 256) % 256, ids // 65536],
+                       -1).astype(np.uint8)
+        Image.fromarray(png).save(f"{root}/panoptic/{i:012d}.png")
+        images.append({"id": 100 + i, "file_name": f"{i:012d}.jpg",
+                       "height": h, "width": w})
+        anns.append({"image_id": 100 + i, "file_name": f"{i:012d}.png",
+                     "segments_info": segs})
+    with open(f"{root}/panoptic.json", "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": cats}, f)
+
+
+def _fe_keypoints(root, rng):
+    """COCO person keypoints: images/*.jpg (640x480) and kp.json, 17
+    joints per person, one joint unlabeled, a crowd box and a box with no
+    keypoints; dets.json holds the people's boxes as detections (their
+    x1.25 crops lie inside the image, as PIL's crop takes)."""
+    import os
+    from PIL import Image
+    os.makedirs(f"{root}/images")
+    boxes = {200: [[200, 100, 120, 240], [400, 150, 100, 200]],
+             201: [[260, 120, 110, 220]]}
+    images, anns, dets = [], [], []
+    ann_id = 500
+    for img_id, people in boxes.items():
+        Image.fromarray(_smooth_u8(rng, (480, 640))).save(
+            f"{root}/images/{img_id:012d}.jpg", quality=90)
+        images.append({"id": img_id, "file_name": f"{img_id:012d}.jpg",
+                       "height": 480, "width": 640})
+        for p, (x, y, bw, bh) in enumerate(people):
+            k = np.zeros((17, 3), np.float64)
+            k[:, 0] = rng.uniform(x + 5, x + bw - 5, 17)
+            k[:, 1] = rng.uniform(y + 5, y + bh - 5, 17)
+            k[:, 2] = 2
+            if ann_id == 500:
+                k[3] = 0  # an unlabeled joint
+            anns.append({"id": ann_id, "image_id": img_id, "iscrowd": 0,
+                         "area": float(bw * bh),
+                         "num_keypoints": int((k[:, 2] > 0).sum()),
+                         "bbox": [float(v) for v in (x, y, bw, bh)],
+                         "keypoints": k.ravel().round(2).tolist()})
+            dets.append({"image_id": img_id, "category_id": 1,
+                         "bbox": [float(v) for v in (x, y, bw, bh)],
+                         "score": 0.9 - 0.1 * p})
+            ann_id += 1
+    anns.append({"id": ann_id, "image_id": 200, "iscrowd": 1, "area": 900.0,
+                 "num_keypoints": 0, "bbox": [10.0, 10.0, 30.0, 30.0],
+                 "keypoints": [0] * 51})
+    anns.append({"id": ann_id + 1, "image_id": 201, "iscrowd": 0,
+                 "area": 400.0, "num_keypoints": 0,
+                 "bbox": [500.0, 20.0, 20.0, 20.0], "keypoints": [0] * 51})
+    with open(f"{root}/kp.json", "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    with open(f"{root}/dets.json", "w") as f:
+        json.dump(dets, f)
+
+
+def _fe_ade(root, rng):
+    """ADE20K: images/*.jpg and annotations/*.png at 512x683, 1-based
+    labels (0 = ignore) in rectangles."""
+    import os
+    from PIL import Image
+    os.makedirs(f"{root}/images")
+    os.makedirs(f"{root}/annotations")
+    h, w = 512, 683
+    for i in range(FE_ADE_IMAGES):
+        name = f"ADE_train_{i:08d}"
+        Image.fromarray(_smooth_u8(rng, (h, w))).save(
+            f"{root}/images/{name}.jpg", quality=90)
+        lab = np.full((h, w), 1 + int(rng.randint(150)), np.uint8)
+        for _ in range(6):
+            y0, x0 = int(rng.randint(0, h - 100)), int(rng.randint(0, w - 100))
+            lab[y0:y0 + 100 + int(rng.randint(200)),
+                x0:x0 + 100 + int(rng.randint(200))] = int(rng.randint(151))
+        Image.fromarray(lab).save(f"{root}/annotations/{name}.png")
+
+
+def _fe_sidd(root, rng):
+    """SIDD Medium sRGB: <scene>/{GT,NOISY}_SRGB_010.PNG at 3000x5328."""
+    import os
+    from PIL import Image
+    for s in range(FE_SIDD_SCENES):
+        scene = f"{root}/{s + 1:04d}_001_S6_00100_00060_3200_L"
+        os.makedirs(scene)
+        clean = _smooth_u8(rng, FE_SIDD_HW)
+        noise = rng.randint(-12, 13, (FE_SIDD_HW[0], 1, 3))
+        noisy = np.clip(clean.astype(np.int16) + noise, 0, 255).astype(
+            np.uint8)
+        Image.fromarray(clean).save(f"{scene}/GT_SRGB_010.PNG",
+                                    compress_level=1)
+        Image.fromarray(noisy).save(f"{scene}/NOISY_SRGB_010.PNG",
+                                    compress_level=1)
+
+
+def _prep_cli(*commands):
+    """Run each command line of the port's prep CLI as a user would, in
+    subprocesses started together; returns their outputs."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "painter_tpu_torch.data.prep", *cmd],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(commands, procs, outs):
+        check(p.returncode == 0, f"prep {cmd[0]} failed:\n{out[-3000:]}")
+        print(f"# prep {cmd[0]}: {out.strip().splitlines()[-1][:200]}")
+    return outs
+
+
+def _fe_compare_sets(card_json, cpu_json, image_key):
+    """The card's generated set against the CPU's: the same JSON, targets
+    bit for bit, images within one uint8 step. Returns (files, share of
+    image values that differ)."""
+    import os
+    from PIL import Image
+    with open(card_json, "rb") as a, open(cpu_json, "rb") as b:
+        check(a.read() == b.read(), f"{card_json}: JSON differs on the CPU")
+    with open(card_json) as f:
+        pairs = json.load(f)
+    croot, hroot = os.path.dirname(card_json), os.path.dirname(cpu_json)
+    differing = total = 0
+    for pair in pairs:
+        for key in ("image_path", "target_path"):
+            a = np.asarray(Image.open(f"{croot}/{pair[key]}"), np.int16)
+            b = np.asarray(Image.open(f"{hroot}/{pair[key]}"), np.int16)
+            if key == image_key:
+                check(np.abs(a - b).max() <= 1,
+                      f"{pair[key]}: the card's image is "
+                      f"{np.abs(a - b).max()} steps off the CPU's")
+                differing += int((a != b).sum())
+                total += a.size
+            else:
+                check(np.array_equal(a, b),
+                      f"{pair[key]}: the card's target differs")
+    return len(pairs), differing / max(total, 1)
+
+
+def _fe_instance_decodes(data, pan_root):
+    """Each thing of a train_org target decodes (the 6400-color palette
+    on the card) to the cell of its mass centre; the crowd thing and the
+    stuff stay black."""
+    from PIL import Image
+    from painter_tpu_torch.data import prep, trainset_gen as tg
+    from painter_tpu_torch.ops.palette import (coco_instance_palette,
+                                               nearest_color_decode)
+    with open(f"{pan_root}/panoptic.json") as f:
+        pan = json.load(f)
+    pal = torch.from_numpy(coco_instance_palette().astype(np.float32)).cuda()
+    checked = 0
+    # one color per thing: decode the distinct colors (a (1024, 1024, 6400)
+    # distance map would not fit)
+    for ann in pan["annotations"][:FE_PAN_IMAGES - 1]:
+        stem = ann["file_name"][:-4]
+        img = np.asarray(Image.open(
+            f"{data}/train_org/{stem}_label_train_org.png"))
+        ids = prep.panoptic_png_to_ids(np.asarray(Image.open(
+            f"{pan_root}/panoptic/{ann['file_name']}").convert("RGB")))
+        for seg in ann["segments_info"]:
+            if seg["category_id"] > 80:
+                continue
+            mask = tg.resize_nearest((ids == seg["id"])[None], (1024, 1024),
+                                     torch.device("cpu"))[0]
+            if seg["iscrowd"]:
+                check(not img[mask].any(), f"{stem}: a crowd thing painted")
+                continue
+            cx, cy = prep.mass_center(mask)
+            ax, ay = int(cx / 1024 * 79), int(cy / 1024 * 79)
+            want = ((ay // 20 * 4 + ax // 20) * 20 + ay % 20) * 20 + ax % 20
+            colors = np.unique(img[mask], axis=0)
+            got = nearest_color_decode(torch.from_numpy(colors).float()
+                                       .cuda()[None], pal)[0].tolist()
+            check(got == [want], f"{stem} segment {seg['id']}: decodes to "
+                  f"{got[:5]}, its mass centre to {want}")
+            checked += 1
+    return checked
+
+
+def _fe_pose_decodes(kp_root, out):
+    """An unaugmented crop of every person, painted on the card, decodes
+    (``evals/pose.py``) back to its joints; the unlabeled joint stays
+    silent. Returns (people, worst error in crop pixels)."""
+    from PIL import Image
+    from painter_tpu_torch.data import trainset_gen as tg
+    from painter_tpu_torch.evals.pose import (decode_painted_heatmaps,
+                                              keypoints_from_heatmaps)
+    jp = tg.gen_pose_trainset(f"{kp_root}/kp.json", f"{kp_root}/images",
+                              out, val=True)
+    with open(jp) as f:
+        pairs = json.load(f)
+    with open(f"{kp_root}/kp.json") as f:
+        people = [a for a in json.load(f)["annotations"]
+                  if a["num_keypoints"] > 0 and not a["iscrowd"]]
+    check(len(pairs) == len(people), f"{len(pairs)} val crops for "
+          f"{len(people)} people")
+    worst = 0.0
+    for pair, ann in zip(pairs, people):
+        lab = np.asarray(Image.open(f"{out}/{pair['target_path']}"),
+                         np.float32)
+        kpts = np.asarray(ann["keypoints"], np.float32).reshape(17, 3)
+        center, scale = tg.bbox_to_center_scale(ann["bbox"])
+        dec, maxvals = keypoints_from_heatmaps(
+            decode_painted_heatmaps(lab[None]), center[None], scale[None])
+        vis = kpts[:, 2] > 0
+        px = scale[0] * 200.0 / 192  # image pixels per crop pixel
+        err = float(np.abs(dec[0][vis] - kpts[vis, :2]).max() / px)
+        worst = max(worst, err)
+        check(err < FE_POSE_DECODE_PX and (maxvals[0, vis, 0] > 0.9).all()
+              and (maxvals[0, ~vis, 0] < 0.1).all(),
+              f"pose crop {pair['target_path']}: decode error {err:.3f} "
+              f"crop px, peaks {maxvals[0, :, 0]}")
+    return len(pairs), worst
+
+
+def _fe_card_vs_cpu_ops(pan_root):
+    """The generators' torch ops on the card against the CPU at the
+    instance sizes (1024 x 0.7..2.0) and the pose warp."""
+    from PIL import Image
+    from painter_tpu_torch.data import trainset_gen as tg
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    img = np.asarray(Image.open(f"{pan_root}/images/{0:012d}.jpg"))
+    masks = np.asarray(Image.open(f"{pan_root}/panoptic/{0:012d}.png"))[
+        None, ..., 1] > 0
+    worst, share = 0, 0.0
+    for size in (716, 1024, 2047):
+        a = tg.resize_bilinear(img, (size, size), cuda).astype(np.int16)
+        b = tg.resize_bilinear(img, (size, size), cpu).astype(np.int16)
+        worst = max(worst, int(np.abs(a - b).max()))
+        share = max(share, float((a != b).mean()))
+        check(np.array_equal(tg.resize_nearest(masks, (size, size), cuda),
+                             tg.resize_nearest(masks, (size, size), cpu)),
+              f"nearest masks at {size} differ between card and CPU")
+    for rot in (0.0, 31.0, -70.0):
+        mat = tg.get_affine_transform(np.array([300.0, 240.0], np.float32),
+                                      np.array([1.1, 1.5], np.float32), rot,
+                                      (192, 256))
+        a = tg.warp_affine(img, mat, (192, 256), cuda).astype(np.int16)
+        b = tg.warp_affine(img, mat, (192, 256), cpu).astype(np.int16)
+        worst = max(worst, int(np.abs(a - b).max()))
+        share = max(share, float((a != b).mean()))
+    check(worst <= 1, f"card resize / warp {worst} steps off the CPU's")
+    return worst, share
+
+
+def _fe_seccrop_times():
+    """ms per sample of the seccrop transform on stitched 896x448 canvases
+    (image bicubic, target nearest), native banded resize against the
+    numpy dense gemm, on the same draws, in turns (dense, native, native,
+    dense). Returns {"native": [ms, ms], "dense": [ms, ms]}."""
+    from painter_tpu_torch.data import transforms as T
+    rng = np.random.RandomState(FE_SEED)
+    canvases = [(rng.randn(896, 448, 3).astype(np.float32),
+                 rng.randn(896, 448, 3).astype(np.float32))
+                for _ in range(FE_SECCROP_SAMPLES)]
+    times = {"native": [], "dense": []}
+    outs = {}
+    for native in (False, True, True, False):
+        tf = T.seccrop_transform((896, 448), native=native)
+        t0 = time.perf_counter()
+        res = [tf(img, tgt, np.random.default_rng((FE_SEED, i)), None,
+                  "nearest") for i, (img, tgt) in enumerate(canvases)]
+        key = "native" if native else "dense"
+        times[key].append((time.perf_counter() - t0) * 1e3 / len(res))
+        outs[key] = res
+    for (a, b), (c, d) in zip(outs["native"], outs["dense"]):
+        check(a.shape == c.shape == (896, 448, 3) and np.array_equal(b, d)
+              and np.abs(a - c).max() <= 1e-4,
+              f"seccrop native vs dense: {np.abs(a - c).max()}")
+    return times
+
+
+def _fe_seccrop_one_thread():
+    """:func:`_fe_seccrop_times` in a process whose BLAS and OpenMP run one
+    thread (the share of a data worker when the pool fills the host's
+    cores), spawned as ``chip_smoke.py --seccrop-times OUT``."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "times.json")
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                   OPENBLAS_NUM_THREADS="1")
+        proc = subprocess.run([sys.executable, __file__, "--seccrop-times",
+                               out], env=env, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, f"one-thread seccrop timing failed:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def _timed_iterator(pd, waits):
+    """Wrap ``pd.data_iterator``: each ``next()``'s wait and the time
+    between batches, per call (the trainer's epoch, then validation)."""
+    real = pd.data_iterator
+
+    def data_iterator(*args, **kwargs):
+        it = real(*args, **kwargs)
+        call = {"wait": [], "start": []}
+        waits.append(call)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                call["wait"].append(time.perf_counter() - t0)
+                call["start"].append(time.perf_counter())
+                yield batch
+        finally:
+            it.close()
+    return real, data_iterator
+
+
+def phase_data_front_end(label):
+    """Raw synthetic datasets in their own formats -> the port's prep CLI
+    (subprocesses; the two generators on the card) -> checks that the
+    targets decode back to their annotations and that the card's set
+    equals the CPU's -> ``train.main`` of Painter ViT-L 896x448 on the
+    generated sets (K1-K4 counted, native ops in 2 spawned workers) ->
+    the dryrun on two ranks of the card. Returns K1-K4's launches."""
+    import os
+    import tempfile
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.data import pairdataset as pd
+    from painter_tpu_torch.data import trainset_gen as tg
+    from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.train import train
+    tmp = tempfile.TemporaryDirectory()
+    raw, data = f"{tmp.name}/raw", f"{tmp.name}/data"
+    rng = np.random.RandomState(FE_SEED)
+    t0 = time.perf_counter()
+    _fe_panoptic(f"{raw}/coco_pan", rng)
+    _fe_keypoints(f"{raw}/coco_kp", rng)
+    _fe_ade(f"{raw}/ade20k", rng)
+    _fe_sidd(f"{raw}/sidd", rng)
+    print(f"# data front end: raw datasets written in "
+          f"{time.perf_counter() - t0:.1f} s ({FE_PAN_IMAGES} COCO panoptic "
+          f"640x480, 3 person-keypoint people in 2 images, "
+          f"{FE_ADE_IMAGES} ADE20K 512x683, {FE_SIDD_SCENES} SIDD pairs "
+          f"{FE_SIDD_HW[0]}x{FE_SIDD_HW[1]})")
+    pan, kp = f"{raw}/coco_pan", f"{raw}/coco_kp"
+    t0 = time.perf_counter()
+    _prep_cli(
+        ["paint-semantic", "--label_dir", f"{raw}/ade20k/annotations",
+         "--out_dir", f"{data}/ade20k/painted", "--task", "ade20k"],
+        ["semantic-from-panoptic", "--panoptic_json",
+         f"{pan}/panoptic.json", "--panoptic_root", f"{pan}/panoptic",
+         "--out_dir", f"{raw}/coco_semantic"],
+        ["gen-instance-trainset", "--panoptic_json", f"{pan}/panoptic.json",
+         "--panoptic_root", f"{pan}/panoptic", "--image_root",
+         f"{pan}/images", "--out_dir", data, "--num_aug", str(FE_INST_AUG),
+         "--seed", str(FE_SEED)],
+        ["gen-pose-trainset", "--keypoints_json", f"{kp}/kp.json",
+         "--image_root", f"{kp}/images", "--out_dir", data, "--num_aug",
+         str(FE_POSE_AUG), "--seed", str(FE_SEED)],
+        ["gen-sidd-patches", "--src_dir", f"{raw}/sidd", "--out_dir",
+         f"{data}/sidd", "--num_patches", str(FE_SIDD_PATCHES)],
+        ["pose-eval-crops", "--image_dir", f"{kp}/images", "--det_json",
+         f"{kp}/dets.json", "--coco_images_json", f"{kp}/kp.json",
+         "--out_dir", f"{tmp.name}/pose_eval"])
+    t_gen = time.perf_counter() - t0
+    _prep_cli(
+        ["paint-semantic", "--label_dir", f"{raw}/coco_semantic",
+         "--out_dir", f"{data}/coco/painted", "--task", "coco_semseg"])
+    os.symlink(f"{raw}/ade20k/images", f"{data}/ade20k/images")
+    os.symlink(f"{pan}/images", f"{data}/coco/images")
+    jsons = {"coco_inst": f"{data}/coco_train_image2panoptic_inst.json",
+             "pose": f"{data}/coco_train_image2pose.json",
+             "ade20k": f"{data}/ade20k.json", "coco_semseg":
+             f"{data}/coco_semseg.json", "denoise": f"{data}/sidd.json"}
+    _prep_cli(
+        ["gen-json", "--image_dir", f"{data}/ade20k/images", "--target_dir",
+         f"{data}/ade20k/painted", "--type", "ade20k_image2semantic",
+         "--out_json", jsons["ade20k"], "--root", data, "--image_ext",
+         "*.jpg"],
+        ["gen-json", "--image_dir", f"{data}/coco/images", "--target_dir",
+         f"{data}/coco/painted", "--type", "coco_image2panoptic_sem_seg",
+         "--out_json", jsons["coco_semseg"], "--root", data, "--image_ext",
+         "*.jpg"],
+        ["gen-json", "--image_dir", f"{data}/sidd/input", "--target_dir",
+         f"{data}/sidd/groundtruth", "--type", "ssid_image2denoise",
+         "--out_json", jsons["denoise"], "--root", data])
+    toy = f"{tmp.name}/toy"
+    _prep_cli(["toy-dataset", "--json_paths", *jsons.values(), "--out_dir",
+               toy, "--root", data, "--n", str(FE_TOY_N)])
+    counts = {}
+    for task, path in jsons.items():
+        with open(path) as f:
+            counts[task] = len(json.load(f))
+    with open(f"{tmp.name}/pose_eval/meta.json") as f:
+        crops = len(json.load(f))
+    # an aug copy whose crop holds no thing is skipped, as in the
+    # reference; org / orgflip of the three images with things never are
+    inst = counts.pop("coco_inst")
+    check(3 * 2 <= inst <= 3 * (FE_INST_AUG + 2)
+          and counts == {"pose": 3 * FE_POSE_AUG, "ade20k": FE_ADE_IMAGES,
+                         "coco_semseg": FE_PAN_IMAGES,
+                         "denoise": FE_SIDD_SCENES * FE_SIDD_PATCHES}
+          and crops == 3, f"generated pairs {inst}, {counts}, eval crops "
+          f"{crops}")
+    counts["coco_inst"] = inst
+    print(f"# data front end: prep CLI wrote {counts} pairs and {crops} "
+          f"pose eval crops (+ flips); the generators took {t_gen:.1f} s "
+          f"on the card, beside the other first-stage subcommands")
+    # the card's sets against the CPU's, and the targets' decodes
+    t0 = time.perf_counter()
+    cpu_inst = tg.gen_instance_trainset(
+        f"{pan}/panoptic.json", f"{pan}/panoptic", f"{pan}/images",
+        f"{tmp.name}/cpu", num_aug=FE_INST_AUG, seed=FE_SEED, device="cpu")
+    cpu_pose = tg.gen_pose_trainset(f"{kp}/kp.json", f"{kp}/images",
+                                    f"{tmp.name}/cpu", num_aug=FE_POSE_AUG,
+                                    seed=FE_SEED, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    n_inst, inst_share = _fe_compare_sets(jsons["coco_inst"], cpu_inst,
+                                          "image_path")
+    n_pose, pose_share = _fe_compare_sets(jsons["pose"], cpu_pose,
+                                          "image_path")
+    worst, op_share = _fe_card_vs_cpu_ops(pan)
+    things = _fe_instance_decodes(data, pan)
+    people, pose_err = _fe_pose_decodes(kp, f"{tmp.name}/pose_val")
+    print(f"# data front end: the card's sets vs the CPU's ({t_cpu:.1f} s "
+          f"on the host): {n_inst} instance and {n_pose} pose pairs, JSON "
+          f"and targets identical, images within 1 step ({inst_share:.4f} / "
+          f"{pose_share:.4f} of values differ); resize / warp ops card vs "
+          f"CPU max {worst} step ({op_share:.4f}), nearest masks equal; "
+          f"{things} things decode to their mass-centre cells, {people} "
+          f"val pose crops to their joints (worst {pose_err:.3f} crop px, "
+          f"tol {FE_POSE_DECODE_PX}) [{label}]")
+    for where, times in (("this process (BLAS on every core)",
+                          _fe_seccrop_times()),
+                         ("a process with one BLAS thread",
+                          _fe_seccrop_one_thread())):
+        native, dense = min(times["native"]), min(times["dense"])
+        print(f"# seccrop transform on stitched 896x448 canvases in {where}"
+              f", host ms per sample in turns (dense, native, native, "
+              f"dense): {times['dense'][0]:.2f}, {times['native'][0]:.2f}, "
+              f"{times['native'][1]:.2f}, {times['dense'][1]:.2f}; best "
+              f"native {native:.2f} vs dense {dense:.2f} "
+              f"({dense / native:.2f}x) [{label}]")
+    # training on the generated sets
+    cfg = configs.get_config(PAINTER)
+    toy_jsons = [f"{toy}/{os.path.basename(p)}" for p in jsons.values()]
+    args = train.get_args_parser().parse_args([
+        "--data_path", toy, "--json_path", *toy_jsons, "--val_json_path",
+        *toy_jsons, "--output_dir", f"{tmp.name}/run", "--model", PAINTER,
+        "--dtype", "bfloat16", "--input_size", *map(str, cfg.img_size),
+        "--num_mask_patches", str(cfg.num_patches // 2),
+        "--max_mask_patches_per_block", str(cfg.num_patches // 4),
+        "--batch_size", str(FE_BATCH), "--accum_iter", str(FE_ACCUM),
+        "--epochs", "1", "--max_steps_per_epoch", str(FE_UPDATES),
+        "--remat_policy", "save_kernel", "--decoder_impl", "fused",
+        "--num_workers", str(FE_WORKERS), "--print_freq", "1",
+        "--watchdog_freq", "1"])
+    counters = (fr.flash_attention_relpos, fr.flash_attention_relpos_bwd,
+                dh.fused_decoder_tail, dh.fused_decoder_tail_bwd)
+    for c in counters:
+        c.launches = 0
+    waits = []
+    real, pd.data_iterator = _timed_iterator(pd, waits)
+    try:
+        result = train.main(args)
+    finally:
+        pd.data_iterator = real
+    k1, k2, k3, k4 = (c.launches for c in counters)
+    micro, depth = FE_UPDATES * FE_ACCUM, cfg.depth
+    val_batches = len(waits[1]["wait"])
+    with open(f"{tmp.name}/run/scalars.jsonl") as f:
+        scalars = [json.loads(line) for line in f]
+    with open(f"{tmp.name}/run/log.txt") as f:
+        stats = json.loads(f.readline())
+    check(result["step"] == FE_UPDATES, f"trained {result['step']} updates")
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+              for s in scalars) and np.isfinite(stats["val_loss"]),
+          f"non-finite loss: {scalars}, {stats}")
+    check(k1 == depth * (micro + val_batches) and k2 == depth * micro
+          and k3 == micro and k4 == micro,
+          f"K1-K4 launched {k1}, {k2}, {k3}, {k4} times on the generated "
+          f"sets ({micro} micro-batches, {val_batches} validation batches)")
+    train_wait = waits[0]["wait"]
+    starts = waits[0]["start"]
+    update_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+    print(f"# training on the generated sets (instance, pose, ADE20K, COCO "
+          f"semseg, denoise; {FE_TOY_N} pairs each, {FE_WORKERS} spawned "
+          f"workers with the native ops): losses "
+          f"{[round(s['loss'], 5) for s in scalars]}, val loss "
+          f"{stats['val_loss']:.5f}; K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} "
+          f"launches; data wait per update "
+          f"{', '.join(f'{1e3 * w:.1f}' for w in train_wait)} ms (the "
+          f"first spawns the workers), validation "
+          f"{', '.join(f'{1e3 * w:.1f}' for w in waits[1]['wait'])} ms; "
+          f"ms between batches (an update and the next batch's wait) "
+          f"{', '.join(f'{t:.1f}' for t in update_ms)} [{label}]")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dryrun, two ranks on the one card (gloo)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "painter_tpu_torch.dryrun", "2", "--procs",
+         "2"], capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"dryrun failed:\n{proc.stdout[-3000:]}"
+          f"\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for want in ("rank 0: mesh", "meter sync ok", "dp-sharded serving",
+                 "flagship ViT-L", "real processes over gloo on cuda:0"):
+        check(any(want in line for line in lines),
+              f"dryrun printed no {want!r} line:\n{proc.stdout}")
+    for line in lines:
+        print(f"# {line}")
+    print(f"# dryrun 2 --procs 2 on the card: {time.perf_counter() - t0:.1f}"
+          f" s [{label}]")
+    tmp.cleanup()
+    return k1, k2, k3, k4
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2441,19 +3028,24 @@ def main():
                                                phase_nccl_world1, label)
     gloo_k1, gloo_k2, gloo_k3, gloo_k4 = timed("gloo two ranks",
                                                phase_gloo_ranks, label)
+    fe_k1, fe_k2, fe_k3, fe_k4 = timed("data front end",
+                                       phase_data_front_end, label)
     infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1 + \
         dp_k1
-    dist_k = (remat_k1 + nccl_k1 + gloo_k1, remat_k2 + nccl_k2 + gloo_k2,
-              nccl_k3 + gloo_k3, nccl_k4 + gloo_k4)
+    dist_k = (remat_k1 + nccl_k1 + gloo_k1 + fe_k1,
+              remat_k2 + nccl_k2 + gloo_k2 + fe_k2,
+              nccl_k3 + gloo_k3 + fe_k3, nccl_k4 + gloo_k4 + fe_k4)
     print(f"# K1 launches: serving main path {serve_k1}, video {video_k1}, "
           f"CLI {cli_k1}, endpoint {endpoint_k1}, Painter task {painter_k1}, "
           f"eval {eval_k1}, dp serving {dp_k1}, training main path "
           f"{train_k1}, remat policies {remat_k1}, NCCL world 1 {nccl_k1}, "
-          f"gloo ranks {gloo_k1}; K2 launches: training main path "
-          f"{train_k2}, remat policies {remat_k2}, NCCL world 1 {nccl_k2}, "
-          f"gloo ranks {gloo_k2}; K3 / K4 launches: training main path "
-          f"{train_k3} / {train_k4}, NCCL world 1 {nccl_k3} / {nccl_k4}, "
-          f"gloo ranks {gloo_k3} / {gloo_k4}; K5 launches: int8-fused "
+          f"gloo ranks {gloo_k1}, data front end {fe_k1}; K2 launches: "
+          f"training main path {train_k2}, remat policies {remat_k2}, NCCL "
+          f"world 1 {nccl_k2}, gloo ranks {gloo_k2}, data front end "
+          f"{fe_k2}; K3 / K4 launches: training main path {train_k3} / "
+          f"{train_k4}, NCCL world 1 {nccl_k3} / {nccl_k4}, gloo ranks "
+          f"{gloo_k3} / {gloo_k4}, data front end {fe_k3} / {fe_k4}; K5 "
+          f"launches: int8-fused "
           f"serving "
           f"path {serve_k5}, CLI --quant int8-fused {cli_k5}, eval "
           f"--quant int8-fused {eval_k5}")
@@ -2487,5 +3079,9 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-rank":
         # one of phase_gloo_ranks' processes
         _gloo_rank(int(sys.argv[2]), sys.argv[4], sys.argv[6])
+    elif len(sys.argv) > 1 and sys.argv[1] == "--seccrop-times":
+        # phase_data_front_end's one-thread seccrop timing
+        with open(sys.argv[2], "w") as f:
+            json.dump(_fe_seccrop_times(), f)
     else:
         main()

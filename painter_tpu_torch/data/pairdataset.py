@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 from PIL import Image
 
+from painter_tpu_torch import native as native_ops
 from painter_tpu_torch.configs import IMAGENET_MEAN, IMAGENET_STD
 from painter_tpu_torch.data import transforms as T
 from painter_tpu_torch.data.masking import BlockMaskingGenerator
@@ -217,15 +218,22 @@ def make_train_dataset(root: str, json_paths: Sequence[str],
                        min_mask_patches_per_block: int = 16,
                        min_random_scale: float = 0.3,
                        half_mask_ratio: float = 0.1,
-                       patch_size: int = 16) -> PairDataset:
-    """The canonical training dataset (main_train.py:232-261)."""
+                       patch_size: int = 16,
+                       native: bool = True) -> PairDataset:
+    """The canonical training dataset (main_train.py:232-261). With
+    ``native`` (the default) the transforms run the host C++ ops, built
+    here, in the process that spawns the sample workers; ``native=False``
+    runs their numpy versions."""
+    if native:
+        native_ops.library()
     grid = (img_size[0] // patch_size, img_size[1] // patch_size)
     return PairDataset(
         root, json_paths,
-        transform=T.train_transform(img_size[1], min_random_scale),
-        transform2=T.identity_crop_transform(img_size[1]),
-        transform3=T.identity_crop_transform(img_size[1]),
-        transform_seccrop=T.seccrop_transform(img_size, min_random_scale),
+        transform=T.train_transform(img_size[1], min_random_scale, native),
+        transform2=T.identity_crop_transform(img_size[1], native),
+        transform3=T.identity_crop_transform(img_size[1], native),
+        transform_seccrop=T.seccrop_transform(img_size, min_random_scale,
+                                              native),
         masking_generator=BlockMaskingGenerator(
             grid, num_masking_patches=num_mask_patches,
             max_num_patches=max_mask_patches_per_block,
@@ -235,14 +243,18 @@ def make_train_dataset(root: str, json_paths: Sequence[str],
 
 def make_val_dataset(root: str, json_paths: Sequence[str],
                      img_size=(896, 448), num_mask_patches: int = 784,
-                     patch_size: int = 16) -> PairDataset:
+                     patch_size: int = 16,
+                     native: bool = True) -> PairDataset:
     """Validation: identity crop, always bottom-half mask
 
-    (main_train.py:262, half_mask_ratio=1.0)."""
+    (main_train.py:262, half_mask_ratio=1.0); ``native`` as in
+    :func:`make_train_dataset`."""
+    if native:
+        native_ops.library()
     grid = (img_size[0] // patch_size, img_size[1] // patch_size)
     return PairDataset(
         root, json_paths,
-        transform=T.identity_crop_transform(img_size[1]),
+        transform=T.identity_crop_transform(img_size[1], native),
         masking_generator=BlockMaskingGenerator(
             grid, num_masking_patches=num_mask_patches),
         use_two_pairs=True, half_mask_ratio=1.0)

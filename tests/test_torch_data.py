@@ -1,7 +1,9 @@
 """PyTorch port: the training data pipeline and logging utilities against
-the JAX package's, on the same files and seeds. The JAX side runs its numpy
-paths (its optional native host ops are switched off for the comparison);
-samples must agree bit for bit."""
+the JAX package's, on the same files and seeds; samples must agree bit
+for bit. Both sides run their numpy paths (the JAX package's native host
+ops switched off, the port's transforms built with ``native=False``), or
+both their native host ops, built from the same C++ source with the same
+flags."""
 import json
 
 import numpy as np
@@ -80,7 +82,8 @@ def _assert_same_batches(got, ref):
 def test_train_batches_match_jax(numpy_paths, toy_root, seed, epoch, accum):
     root, json_paths = toy_root
     ds_j = jpd.make_train_dataset(root, json_paths, **_train_kwargs())
-    ds_t = tpd.make_train_dataset(root, json_paths, **_train_kwargs())
+    ds_t = tpd.make_train_dataset(root, json_paths, native=False,
+                                  **_train_kwargs())
     assert ds_t.weights == ds_j.weights
     s_j = jpd.WeightedMixtureSampler(ds_j.weights, seed=seed)
     s_t = tpd.WeightedMixtureSampler(ds_t.weights, seed=seed)
@@ -97,13 +100,30 @@ def test_val_batches_match_jax(numpy_paths, toy_root):
     root, json_paths = toy_root
     kw = dict(img_size=(64, 32), num_mask_patches=4, patch_size=8)
     ds_j = jpd.make_val_dataset(root, json_paths, **kw)
-    ds_t = tpd.make_val_dataset(root, json_paths, **kw)
+    ds_t = tpd.make_val_dataset(root, json_paths, native=False, **kw)
     ref = list(jpd.data_iterator(
         ds_j, jpd.WeightedMixtureSampler(ds_j.weights, seed=1), 3, 0,
         seed=1, num_workers=0))
     got = list(tpd.data_iterator(
         ds_t, tpd.WeightedMixtureSampler(ds_t.weights, seed=1), 3, 0,
         seed=1, num_workers=0))
+    _assert_same_batches(got, ref)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_native_train_batches_match_jax_native(toy_root, workers):
+    """The port's native pipeline (the default), in the parent and in two
+    spawned workers, against the JAX package's native one."""
+    assert native.available()
+    root, json_paths = toy_root
+    ds_j = jpd.make_train_dataset(root, json_paths, **_train_kwargs())
+    ds_t = tpd.make_train_dataset(root, json_paths, **_train_kwargs())
+    ref = list(jpd.data_iterator(
+        ds_j, jpd.WeightedMixtureSampler(ds_j.weights, seed=5), 2, 1,
+        seed=5, accum_iter=2, num_workers=0))
+    got = list(tpd.data_iterator(
+        ds_t, tpd.WeightedMixtureSampler(ds_t.weights, seed=5), 2, 1,
+        seed=5, accum_iter=2, num_workers=workers))
     _assert_same_batches(got, ref)
 
 

@@ -145,8 +145,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module imports with ``jax`` and ``painter_tpu`` blocked
     as whole module names (``painter_tpu`` is a prefix of the port's own
     name, so a substring check would be wrong); importing them loads
-    neither ``cv2`` (the video-file driver imports it when it runs) nor
-    ``gradio`` (the demo UI's)."""
+    neither ``cv2`` (the video-file driver imports it when it runs; the
+    training-set generators never do), ``gradio`` (the demo UI's) nor
+    ``h5py`` (the NYUv2 extractor imports it when it runs)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -160,11 +161,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       or m.startswith(('jax.', 'painter_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert 'cv2' not in sys.modules and 'gradio' not in sys.modules\n"
-        "print(len(names))\n")
+        "assert 'h5py' not in sys.modules\n"
+        "print(len(names), *names)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 33
+    count, *names = res.stdout.split()
+    assert int(count) >= 58
+    assert {"painter_tpu_torch.data.prep", "painter_tpu_torch.data."
+            "trainset_gen", "painter_tpu_torch.native",
+            "painter_tpu_torch.dryrun"} <= set(names)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
