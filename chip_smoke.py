@@ -7,7 +7,11 @@ holds each kernel (K1 attention forward, K2 its backward, K3 / K4 the
 fused decoder tail forward / backward, K5 the fused w8a8 MLP) against its
 plain PyTorch version on the card, then drives the main paths at full
 width and depth with random weights from a seed: serving SegGPT ViT-L
-896x448 (bf16) through ``InContextModel``, in bf16 and quantized (int8,
+896x448 (bf16) through ``InContextModel``; the tools of
+``painter_tpu_torch/utils`` (the parity CLI on SegGPT and the windowed
+Painter ViT-L, the float64 oracle against the fp32 forward, a profiler
+trace, the component profile and the K1 / K2 stage profile); serving
+again in bf16 and quantized (int8,
 and int8 with the fused MLP kernel); the rest of serving through the
 entry points a user calls: SegGPT's video protocol on 10 DAVIS-sized
 frames through both prompt caches (bitwise equal, also after the device
@@ -660,6 +664,222 @@ def phase_model(label):
     check(bf16_vs_fp32 <= FWD_BF16_TOL,
           f"bf16 engine output is {bf16_vs_fp32} from the fp32 forward")
     return model, launches
+
+
+# the parity CLI's tolerance (the JAX CLI's default): the fp32 forward
+# (TF32 off) against the float64 oracle, painted output on the normalized
+# scale and loss
+PARITY_TOL = 1e-3
+# the smoke's own limit on the oracle against the fp32 forward in its
+# process: between that reading with TF32 off (~5e-6) and the same
+# forward with TF32 on, which must exceed it, so a forward that kept TF32
+# would fail
+ORACLE_TOL = 1e-4
+PARITY_MODELS = ("seggpt_vit_large_patch16_input896x448",
+                 "painter_vit_large_patch16_input896x448_windowed")
+# the component profile's chains in the smoke (the CLI keeps JAX's 16 /
+# 64 / 48 and 3 reps)
+TOOLS_N1, TOOLS_N2, TOOLS_REPS = 2, 6, 1
+TOOLS_FWD_KEYS = {"block_ms", "mlp_ms", "ln_ms", "qkv_proj_ms",
+                  "flash_kernel_ms"}
+TOOLS_BWD_KEYS = {"block_ms", "attn_sub_ms", "mlp_sub_ms", "kernel_ms",
+                  "decoder_ms", "loss_ms", "patch_embed_ms"}
+
+
+def phase_tools(model, label):
+    """The tools of ``painter_tpu_torch/utils``: the parity CLI on SegGPT
+    and on the windowed Painter ViT-L (subprocesses, both at once); the
+    float64 oracle against the fp32 forward of the seeded SegGPT (noisy
+    rel-pos tables, K1's fp32 route), with TF32 off within ORACLE_TOL and
+    with TF32 on beyond it; a ``profiling.trace`` of one b1 bf16
+    serving forward, ``StepTimer`` and ``device_memory_stats``; the
+    component profile of Painter ViT-L at b8 bf16 through K1 / K2 on short
+    chains; the K1 / K2 stage profile, its ``full`` variants bitwise equal
+    to the kernels. Returns K1's and K2's launches of the oracle check,
+    the trace and the component profile (the stage profile's variants
+    are not the path's kernels and are not counted)."""
+    import glob
+    import os
+    import tempfile
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import engine
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.models import incontext_vit as tm
+    from painter_tpu_torch.ops.patches import unpatchify
+    from painter_tpu_torch.utils import component_profile as cp
+    from painter_tpu_torch.utils import kernel_stage_profile as ksp
+    from painter_tpu_torch.utils import parity, profiling
+    from painter_tpu_torch.utils.torch_oracle import torch_forward
+
+    # the parity CLI, both models at once
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "painter_tpu_torch.utils.parity", "--model",
+         name], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in PARITY_MODELS}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            lines = out.strip().splitlines()
+            check(proc.returncode == 0 and lines
+                  and lines[-1] == "PARITY OK",
+                  f"parity CLI --model {name} exited {proc.returncode}:\n"
+                  f"{out[-2000:]}\n{err[-3000:]}")
+            print(f"# parity CLI --model {name} (fp32, TF32 off, K1's fp32 "
+                  f"route) vs the float64 oracle: {lines[-3].strip()}; "
+                  f"{lines[-2].strip()} (tol {PARITY_TOL}) [{label}]")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    counters = (fr.flash_attention_relpos, fr.flash_attention_relpos_bwd)
+    for c in counters:
+        c.launches = 0
+    # the oracle against the fp32 forward, noisy rel-pos tables
+    cfg32 = configs.get_config(PARITY_MODELS[0], dtype="float32")
+    m32 = _same_weights(model, cfg32)
+    h, w = cfg32.img_size
+    rng = np.random.RandomState(2)
+    imgs = rng.randn(1, h, w, 3).astype(np.float32)
+    tgts = rng.randn(1, h, w, 3).astype(np.float32)
+    mask = np.zeros((1, cfg32.num_patches), np.float32)
+    mask[:, cfg32.num_patches // 2:] = 1.0
+    valid = np.ones_like(tgts)
+    seg = np.zeros((1, 1), np.int32)
+    def fp32_forward():
+        with torch.no_grad():
+            loss, patches, _ = tm.forward(
+                m32, *(torch.from_numpy(a).cuda() for a in (imgs, tgts, mask,
+                                                             valid)),
+                seg_type=torch.from_numpy(seg).cuda().long())
+            return (loss.item(),
+                    unpatchify(patches, cfg32.patch_size).cpu().numpy())
+
+    with parity.no_tf32():
+        loss, pred = fp32_forward()
+        k1_oracle = fr.flash_attention_relpos.launches
+        ref_loss, ref_pred = torch_forward(m32.state_dict(), cfg32, imgs,
+                                           tgts, mask, valid, seg_type=seg,
+                                           device="cuda")
+    # the same forward with TF32 on for cuBLAS and cuDNN
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_tf32, pred_tf32 = fp32_forward()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = was
+    k1_tf32 = fr.flash_attention_relpos.launches - k1_oracle
+    pred_err = float(np.abs(pred - ref_pred).max())
+    loss_err = abs(loss - ref_loss)
+    tf32_pred_err = float(np.abs(pred_tf32 - ref_pred).max())
+    tf32_loss_err = abs(loss_tf32 - ref_loss)
+    print(f"# float64 oracle vs the fp32 forward of the seeded SegGPT "
+          f"(rel-pos tables N(0, 0.1)): TF32 off painted max abs "
+          f"{pred_err:.3e}, loss abs {loss_err:.3e} (tol {ORACLE_TOL}); "
+          f"TF32 on painted max abs {tf32_pred_err:.3e}, loss abs "
+          f"{tf32_loss_err:.3e} (must exceed {ORACLE_TOL}); K1 fp32 "
+          f"launches {k1_oracle} + {k1_tf32} [{label}]")
+    check(pred_err < ORACLE_TOL and loss_err < ORACLE_TOL,
+          f"oracle vs fp32 forward: {pred_err}, {loss_err}")
+    check(tf32_pred_err > ORACLE_TOL,
+          f"the fp32 forward with TF32 on is {tf32_pred_err} from the "
+          f"oracle: the limit {ORACLE_TOL} does not tell TF32 from fp32")
+    check(k1_oracle == k1_tf32 == cfg32.depth,
+          f"K1 launched {k1_oracle} and {k1_tf32} times in the fp32 "
+          f"forwards")
+    k1_oracle += k1_tf32
+
+    # a trace of one b1 bf16 serving forward, StepTimer, memory stats
+    eng = engine.InContextModel(model.cfg, model, device="cuda")
+    res = model.cfg.img_size[1]
+    img1, tgt1 = engine.build_prompt_batch(rng.rand(res, res, 3),
+                                           [(rng.rand(res, res, 3),
+                                             rng.rand(res, res, 3))])
+    with tempfile.TemporaryDirectory() as d:
+        before = fr.flash_attention_relpos.launches
+        with profiling.trace(d):
+            eng.run_one_image(img1, tgt1)
+        k1_trace = fr.flash_attention_relpos.launches - before
+        files = glob.glob(os.path.join(d, "*.json"))
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(files[0]) as f:
+            text = f.read()
+        size = os.path.getsize(files[0])
+    check("hop::fwd_kernel" in text, "the trace names no K1 kernel")
+    timer = profiling.StepTimer(sync_every=2)
+    x = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    rates = [timer.step(x @ x) for _ in range(4)]
+    check([r is None for r in rates] == [True, False, True, False]
+          and all(r > 0 for r in rates[1::2]), f"StepTimer gave {rates}")
+    mem = profiling.device_memory_stats()
+    dev0 = mem.get("cuda:0", {})
+    check(len(mem) == torch.cuda.device_count()
+          and 70e9 < dev0.get("bytes_limit", 0) < 90e9
+          and 0 < dev0["bytes_in_use"] <= dev0["peak_bytes_in_use"],
+          f"device_memory_stats gave {mem}")
+    print(f"# profiling.trace of one b1 bf16 serving forward: {size} bytes, "
+          f"names K1's hop::fwd_kernel, K1 launches {k1_trace}; StepTimer "
+          f"every 2nd step {[round(r, 3) for r in rates[1::2]]} steps/s; "
+          f"device_memory_stats cuda:0 {dev0} [{label}]")
+    check(k1_trace == model.cfg.depth, f"K1 launched {k1_trace} times in "
+          f"the traced forward")
+    del eng, m32, x
+
+    # the component profile: Painter ViT-L b8 bf16, K1 / K2, short chains
+    pcfg = configs.get_config(PAINTER, dtype="bfloat16", drop_path_rate=0.0)
+    before = [c.launches for c in counters]
+    fwd = cp.profile_forward(pcfg, 8, "kernel", n1=TOOLS_N1, n2=TOOLS_N2,
+                             reps=TOOLS_REPS, device="cuda")
+    bwd = cp.profile_backward(pcfg, 8, "kernel", "save_kernel", n1=TOOLS_N1,
+                              n2=TOOLS_N2, reps=TOOLS_REPS, device="cuda")
+    k1_cp, k2_cp = (c.launches - b for c, b in zip(counters, before))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"# component profile, {PAINTER} b8 bf16, kernel attention, "
+          f"save_kernel, chains {TOOLS_N1} / {TOOLS_N2}, {TOOLS_REPS} rep: "
+          f"FWD {json.dumps(fwd)} BWD {json.dumps(bwd)}; K1 launches "
+          f"{k1_cp}, K2 {k2_cp} [{label}]")
+    check(set(fwd) == TOOLS_FWD_KEYS and set(bwd) == TOOLS_BWD_KEYS,
+          f"component profile keys {sorted(fwd)} {sorted(bwd)}")
+    check(all(np.isfinite(v) and v > 0 for v in (*fwd.values(),
+                                                  *bwd.values())),
+          f"component profile times {fwd} {bwd}")
+    # every chain is run once to warm and TOOLS_REPS times at each length:
+    # K1 in block and flash forward chains and in the block, attention
+    # and bare-kernel gradient chains, K2 in the last three
+    runs = (1 + TOOLS_REPS) * (TOOLS_N1 + TOOLS_N2)
+    check((k1_cp, k2_cp) == (5 * runs, 3 * runs),
+          f"component profile launched K1 {k1_cp}, K2 {k2_cp} times, "
+          f"expected {5 * runs}, {3 * runs}")
+
+    # the K1 / K2 stage profile: variants are comparisons, not the path
+    saved = [c.launches for c in counters]
+    stages = ksp.profile(iters=5, reps=2)
+    for c, n in zip(counters, saved):
+        c.launches = n
+    check(stages["full_bitwise_equal"] == {"fwd": True, "bwd": True},
+          f"the full variants differ from the kernels: "
+          f"{stages['full_bitwise_equal']}")
+    times = [*stages["fwd"].values(), *stages["bwd"].values()]
+    check(set(stages["fwd"]) == set(ksp.FWD_STAGES)
+          and set(stages["bwd"]) == set(ksp.BWD_STAGES)
+          and all(np.isfinite(t) and t > 0 for t in times),
+          f"stage profile {stages}")
+    for what in ("fwd", "bwd"):
+        print(f"# stage profile {what} (bf16, BH 128, 56x28; ms per call): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages[what].items())
+              + f" [{label}]")
+    print("# stage profile bwd device ms (dq kernel / dkv kernel): "
+          + ", ".join(f"{k} {v['dq']:.4f} / {v['dkv']:.4f}" if v else
+                      f"{k} not measured"
+                      for k, v in stages["bwd_device_ms"].items())
+          + f" [{label}]")
+    print("STAGE_PROFILE " + json.dumps(stages))
+    return k1_oracle + k1_trace + k1_cp, k2_cp
 
 
 def phase_times(model, label, what="bf16", profile=True):
@@ -3000,6 +3220,7 @@ def main():
     tail_rows = timed("K3/K4 vs plain", phase_tail, label)
     k5_rows = timed("K5 vs plain", phase_k5, label)
     model, serve_k1 = timed("serving drive", phase_model, label)
+    tools_k1, tools_k2 = timed("tools", phase_tools, model, label)
     bf16_times = timed("serving times", phase_times, model, label)
     serve_k5, int8_times = timed("int8 serving drive", phase_int8_serving,
                                  model, label)
@@ -3032,17 +3253,18 @@ def main():
                                        phase_data_front_end, label)
     infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1 + \
         dp_k1
-    dist_k = (remat_k1 + nccl_k1 + gloo_k1 + fe_k1,
-              remat_k2 + nccl_k2 + gloo_k2 + fe_k2,
+    dist_k = (remat_k1 + nccl_k1 + gloo_k1 + fe_k1 + tools_k1,
+              remat_k2 + nccl_k2 + gloo_k2 + fe_k2 + tools_k2,
               nccl_k3 + gloo_k3 + fe_k3, nccl_k4 + gloo_k4 + fe_k4)
     print(f"# K1 launches: serving main path {serve_k1}, video {video_k1}, "
           f"CLI {cli_k1}, endpoint {endpoint_k1}, Painter task {painter_k1}, "
           f"eval {eval_k1}, dp serving {dp_k1}, training main path "
           f"{train_k1}, remat policies {remat_k1}, NCCL world 1 {nccl_k1}, "
-          f"gloo ranks {gloo_k1}, data front end {fe_k1}; K2 launches: "
+          f"gloo ranks {gloo_k1}, data front end {fe_k1}, tools "
+          f"{tools_k1}; K2 launches: "
           f"training main path {train_k2}, remat policies {remat_k2}, NCCL "
           f"world 1 {nccl_k2}, gloo ranks {gloo_k2}, data front end "
-          f"{fe_k2}; K3 / K4 launches: training main path {train_k3} / "
+          f"{fe_k2}, tools {tools_k2}; K3 / K4 launches: training main path {train_k3} / "
           f"{train_k4}, NCCL world 1 {nccl_k3} / {nccl_k4}, gloo ranks "
           f"{gloo_k3} / {gloo_k4}, data front end {fe_k3} / {fe_k4}; K5 "
           f"launches: int8-fused "

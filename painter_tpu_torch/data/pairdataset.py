@@ -212,6 +212,16 @@ class WeightedMixtureSampler:
         return drawn[self.rank:self.total:self.num_replicas]
 
 
+def _resolve_native(native: Optional[bool]) -> bool:
+    """``None`` -> ``native_ops.enabled()``; a native choice builds the
+    host library now, before the sample workers spawn."""
+    if native is None:
+        native = native_ops.enabled()
+    if native:
+        native_ops.library()
+    return native
+
+
 def make_train_dataset(root: str, json_paths: Sequence[str],
                        img_size=(896, 448), num_mask_patches: int = 784,
                        max_mask_patches_per_block: int = 392,
@@ -219,13 +229,13 @@ def make_train_dataset(root: str, json_paths: Sequence[str],
                        min_random_scale: float = 0.3,
                        half_mask_ratio: float = 0.1,
                        patch_size: int = 16,
-                       native: bool = True) -> PairDataset:
+                       native: Optional[bool] = None) -> PairDataset:
     """The canonical training dataset (main_train.py:232-261). With
-    ``native`` (the default) the transforms run the host C++ ops, built
-    here, in the process that spawns the sample workers; ``native=False``
-    runs their numpy versions."""
-    if native:
-        native_ops.library()
+    ``native`` the transforms run the host C++ ops, built here, in the
+    process that spawns the sample workers (a failed build raises);
+    ``native=False`` runs their numpy versions; ``None`` (the default)
+    is ``native_ops.enabled()``: native unless ``PAINTER_TPU_NO_NATIVE=1``."""
+    native = _resolve_native(native)
     grid = (img_size[0] // patch_size, img_size[1] // patch_size)
     return PairDataset(
         root, json_paths,
@@ -244,13 +254,12 @@ def make_train_dataset(root: str, json_paths: Sequence[str],
 def make_val_dataset(root: str, json_paths: Sequence[str],
                      img_size=(896, 448), num_mask_patches: int = 784,
                      patch_size: int = 16,
-                     native: bool = True) -> PairDataset:
+                     native: Optional[bool] = None) -> PairDataset:
     """Validation: identity crop, always bottom-half mask
 
     (main_train.py:262, half_mask_ratio=1.0); ``native`` as in
     :func:`make_train_dataset`."""
-    if native:
-        native_ops.library()
+    native = _resolve_native(native)
     grid = (img_size[0] // patch_size, img_size[1] // patch_size)
     return PairDataset(
         root, json_paths,

@@ -15,16 +15,22 @@ the data workers' image ops) go the same way through ``g++`` with
 since such a library does not run on another CPU. Each library is written
 under a name of its own process and renamed into place, so processes that
 build the same source at once leave one whole library.
+
+A wrapper caches the symbols it looks up in a library with :func:`lookup`;
+:func:`swapped` runs the wrappers on other builds of a source (the edited
+variants of ``utils/kernel_variants.py``) and forgets those lookups on
+entry and on exit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -131,3 +137,37 @@ def build(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     return ctypes.CDLL(build(name))
+
+
+_lookups: List[Callable] = []
+
+
+def lookup(fn: Callable) -> Callable:
+    """``functools.cache`` for a wrapper's lookup of its symbols in a
+    :func:`library`, forgotten whenever :func:`swapped` changes the
+    libraries."""
+    cached = functools.cache(fn)
+    _lookups.append(cached)
+    return cached
+
+
+@contextlib.contextmanager
+def swapped(libs: Dict[str, str]):
+    """Inside, :func:`library` of each source in ``libs`` (name -> path of
+    a library built elsewhere) is that library, so the wrappers run it."""
+    global library
+    real = library
+    loaded = {name: ctypes.CDLL(path) for name, path in libs.items()}
+
+    def swapped_library(name: str) -> ctypes.CDLL:
+        return loaded[name] if name in loaded else real(name)
+
+    library = swapped_library
+    for fn in _lookups:
+        fn.cache_clear()
+    try:
+        yield
+    finally:
+        library = real
+        for fn in _lookups:
+            fn.cache_clear()

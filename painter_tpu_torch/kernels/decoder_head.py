@@ -34,7 +34,6 @@ conv2 (3, C, 1, 1) (``decoder_pred.3``); pixels and outputs NHWC.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -138,7 +137,7 @@ def fused_decoder_tail_bwd_reference(pix, conv1_w, conv1_b, ln_w, ln_b,
 # The CUDA kernels
 # ---------------------------------------------------------------------------
 
-@functools.cache
+@build.lookup
 def _fn(name: str, symbol: str, n_ptrs: int, n_ints: int):
     fn = getattr(build.library(name), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
@@ -147,7 +146,7 @@ def _fn(name: str, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-@functools.cache
+@build.lookup
 def _error_string(name: str):
     fn = getattr(build.library(name), f"{name}_error_string")
     fn.argtypes = [ctypes.c_int]
@@ -222,7 +221,7 @@ def fused_decoder_tail(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b,
 fused_decoder_tail.launches = 0
 
 
-@functools.cache
+@build.lookup
 def _partials_fn():
     fn = build.library("decoder_tail_bwd").decoder_tail_bwd_partials
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]

@@ -26,7 +26,6 @@ backward's recompute never runs K1 again.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -146,7 +145,7 @@ def _check(q, k, v, rel_h, rel_w, k_size, max_rel=MAX_REL_ENTRIES,
                              f"aligned")
 
 
-@functools.cache
+@build.lookup
 def _kernel_fn(dtype: torch.dtype):
     fn = getattr(build.library("flash_relpos_fwd"), _FWD_FUNCS[dtype])
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
@@ -155,7 +154,7 @@ def _kernel_fn(dtype: torch.dtype):
     return fn
 
 
-@functools.cache
+@build.lookup
 def _bwd_kernel_fn(dtype: torch.dtype):
     fn = getattr(build.library("flash_relpos_bwd"), _BWD_FUNCS[dtype])
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
@@ -164,7 +163,7 @@ def _bwd_kernel_fn(dtype: torch.dtype):
     return fn
 
 
-@functools.cache
+@build.lookup
 def _error_string(name: str):
     fn = getattr(build.library(name), f"{name}_error_string")
     fn.argtypes = [ctypes.c_int]

@@ -20,7 +20,6 @@ biases.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -77,7 +76,7 @@ def int8_mlp_reference(x, w1q, s1, b1, w2q, s2, b2):
     return out.to(x.dtype).reshape(*lead, k)
 
 
-@functools.cache
+@build.lookup
 def _kernel_fn():
     fn = build.library("int8_mlp").int8_mlp_bf16
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
@@ -86,7 +85,7 @@ def _kernel_fn():
     return fn
 
 
-@functools.cache
+@build.lookup
 def _error_string():
     fn = build.library("int8_mlp").int8_mlp_error_string
     fn.argtypes = [ctypes.c_int]

@@ -11,14 +11,22 @@ loaded with ``ctypes``. The wrappers keep the JAX package's signatures:
 taps that :func:`painter_tpu_torch.ops.resample.resize_weights`' dense
 matrix holds nonzero, with the same values).
 
-There is no quiet fallback: a failed build raises. The numpy versions in
+There is no quiet fallback: a failed build raises. The JAX package's
+``_load`` falls back to numpy when the build fails; the port does not copy
+that, so a host whose compiler broke is told so instead of training on
+the slower path unawares. The numpy versions in
 :mod:`painter_tpu_torch.data.transforms` stay as the plain versions, which
-a transform selects with ``native=False``.
+a transform selects with ``native=False``, and a user opts out of the
+native ops as in the JAX package, with ``PAINTER_TPU_NO_NATIVE=1``:
+:func:`enabled` is then false, and the datasets built with ``native=None``
+(the trainer's and the dryrun's) take the numpy versions without building
+anything.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Tuple
 
 import numpy as np
@@ -27,7 +35,14 @@ from painter_tpu_torch.kernels import build
 from painter_tpu_torch.ops.resample import _cubic_kernel, nearest_indices
 
 
-@functools.cache
+def enabled() -> bool:
+    """False when the environment opts out of the native ops
+    (``PAINTER_TPU_NO_NATIVE=1``, the JAX package's variable); read at
+    each call."""
+    return os.environ.get("PAINTER_TPU_NO_NATIVE", "") != "1"
+
+
+@build.lookup
 def library() -> ctypes.CDLL:
     """The loaded library, built first if needed; raises when ``g++``
     fails or is missing."""

@@ -235,3 +235,60 @@ class LayerDecayAdamW:
                     shard.copy_(self._slice(p, d))
         self.adamw.load_state_dict(sd)
         self.count = int(state["count"])
+
+
+
+# optax.lars' defaults, which the JAX package's ``lars`` keeps
+LARS_TRUST_COEFFICIENT = 0.001
+LARS_EPS = 0.0
+
+
+class _Lars(torch.optim.Optimizer):
+    def __init__(self, params, learning_rate, weight_decay, momentum):
+        super().__init__(params, dict(lr=learning_rate,
+                                      weight_decay=weight_decay,
+                                      momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad + group["weight_decay"] * p
+                p_norm = torch.linalg.vector_norm(p)
+                u_norm = torch.linalg.vector_norm(u)
+                ratio = torch.where(
+                    (p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                    LARS_TRUST_COEFFICIENT * p_norm / (u_norm + LARS_EPS))
+                u = u * ratio * -group["lr"]
+                state = self.state[p]
+                if "trace" not in state:
+                    state["trace"] = torch.zeros_like(p)
+                trace = state["trace"]
+                trace.mul_(group["momentum"]).add_(u)
+                p.add_(trace)
+        return loss
+
+
+def lars(params, learning_rate: float = 0.0, weight_decay: float = 0.0,
+         momentum: float = 0.9) -> torch.optim.Optimizer:
+    """LARS over ``params`` with the JAX package's ``lars`` arguments
+    (``Painter/util/lars.py``, MoCo v3), in ``optax.lars``' order: every
+    parameter decayed and trust-scaled, momentum not Nesterov. Per
+    parameter ``p`` with gradient ``g``:
+
+    1. ``u = g + weight_decay * p`` (``add_decayed_weights``);
+    2. ``u *= LARS_TRUST_COEFFICIENT * ||p|| / (||u|| + LARS_EPS)``, or 1
+       where either norm is 0 (``scale_by_trust_ratio``);
+    3. ``u *= -learning_rate`` (``scale_by_learning_rate``);
+    4. ``t = u + momentum * t``, the update is ``t`` (``trace``, applied
+       after the learning rate);
+    5. ``p += t``.
+
+    Unused by the trainer, as in JAX."""
+    return _Lars(params, learning_rate, weight_decay, momentum)

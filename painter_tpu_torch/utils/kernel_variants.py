@@ -22,6 +22,10 @@ bf16, both GELU flavours):
 
 K4's (the backward, tanh): ``flavour_branch`` in the du launch.
 
+``utils/kernel_stage_profile.py`` builds K1's and K2's stage-dropped
+variants on the same mechanism (:func:`apply_edits`, :func:`build_variants`
+and ``kernels/build.py``'s ``swapped``).
+
 With ``--against DIR`` (the root of another checkout, e.g. ``git archive``
 of a parent commit unpacked), K3 and K4 built from DIR's sources are timed
 in turns with this checkout's (other, this, this, other).
@@ -39,8 +43,6 @@ JSON line last.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import functools
 import json
 import os
@@ -167,28 +169,6 @@ def build_variants(variants: Dict[str, Tuple[str, Edits]],
     return libs
 
 
-@contextlib.contextmanager
-def swapped(libs: Dict[str, str]):
-    """Run the wrappers of each source in ``libs`` on its library there."""
-    real = build.library
-    loaded = {source: ctypes.CDLL(lib) for source, lib in libs.items()}
-
-    def library(name):
-        return loaded[name] if name in loaded else real(name)
-
-    build.library = library
-    dh._fn.cache_clear()
-    dh._error_string.cache_clear()
-    dh._partials_fn.cache_clear()
-    try:
-        yield
-    finally:
-        build.library = real
-        dh._fn.cache_clear()
-        dh._error_string.cache_clear()
-        dh._partials_fn.cache_clear()
-
-
 def tail_inputs(shape=(2, 896, 448), seed=200):
     """bf16 pixels and upstream gradient, fp32 parameters at ``shape`` from
     ``seed``, scaled as ``chip_smoke.py``'s tail case."""
@@ -213,7 +193,7 @@ def _tuple(x):
 
 def _measure(what, variant, libs, fn, ref, iters):
     """One turn: ``fn`` on ``libs`` against ``ref``, then its times."""
-    with swapped(libs):
+    with build.swapped(libs):
         out, again = _tuple(fn()), _tuple(fn())
         torch.cuda.synchronize()
         row = {"kernel": what, "variant": variant,

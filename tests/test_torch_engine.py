@@ -167,10 +167,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, *names = res.stdout.split()
-    assert int(count) >= 58
+    assert int(count) >= 63
     assert {"painter_tpu_torch.data.prep", "painter_tpu_torch.data."
             "trainset_gen", "painter_tpu_torch.native",
             "painter_tpu_torch.dryrun"} <= set(names)
+    assert {f"painter_tpu_torch.utils.{m}" for m in (
+        "torch_oracle", "parity", "profiling", "component_profile",
+        "kernel_stage_profile")} <= set(names)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):

@@ -4,6 +4,7 @@ package's ``painter_tpu.native`` (the same source and flags), against the
 port's numpy versions to ``tests/test_native.py``'s tolerances, the same
 draws through the transforms either way, and a failed build raises
 instead of falling back."""
+import json
 import os
 import shutil
 
@@ -18,6 +19,9 @@ from painter_tpu_torch.data import pairdataset as tpd
 from painter_tpu_torch.data import transforms as T
 from painter_tpu_torch.kernels import build
 from painter_tpu_torch.ops.resample import nearest_indices, resize_weights
+from painter_tpu_torch.train import train as ttrain
+
+from test_torch_train import _cli_args, toy_data  # noqa: F401
 
 MEAN = np.asarray(IMAGENET_MEAN, np.float32)
 STD = np.asarray(IMAGENET_STD, np.float32)
@@ -101,6 +105,42 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         # the plain versions need no build
         T.PairColorJitter(p=1.0, native=False)(img, img,
                                               np.random.default_rng(0))
+    finally:
+        build.library.cache_clear()
+        tnative.library.cache_clear()
+
+
+def test_opt_out_trains_where_the_build_fails(tmp_path, monkeypatch,
+                                             toy_data):  # noqa: F811
+    """``PAINTER_TPU_NO_NATIVE=1`` (the JAX package's opt-out) makes
+    ``train.main`` train on the numpy versions on a host whose compiler
+    is missing, building nothing; with the variable unset the same run
+    raises, as a failed build always does."""
+    root, jp = toy_data
+    monkeypatch.setattr(build, "GXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "b"))
+    build.library.cache_clear()
+    tnative.library.cache_clear()
+    try:
+        monkeypatch.delenv("PAINTER_TPU_NO_NATIVE", raising=False)
+        assert tnative.enabled()
+        with pytest.raises(RuntimeError, match="no-such-g"):
+            ttrain.main(_cli_args(root, jp, str(tmp_path / "native")))
+        monkeypatch.setenv("PAINTER_TPU_NO_NATIVE", "1")
+        assert not tnative.enabled()
+        out_dir = str(tmp_path / "numpy")
+        state = ttrain.main(_cli_args(root, jp, out_dir))
+        # 16 samples / (batch 4 x accum 2) = 2 updates per epoch, 2 epochs
+        assert state["step"] == 4
+        assert next(state["model"].parameters()).device.type == "cpu"
+        with open(os.path.join(out_dir, "log.txt")) as f:
+            assert np.isfinite(json.loads(f.readline())["train_loss"])
+        assert not [f for f in os.listdir(tmp_path / "b")
+                    if f.endswith(".so")]
+        # an explicit native=True still builds, and raises
+        with pytest.raises(RuntimeError, match="no-such-g"):
+            tpd.make_train_dataset(root, [jp], img_size=(64, 32),
+                                   patch_size=8, native=True)
     finally:
         build.library.cache_clear()
         tnative.library.cache_clear()
