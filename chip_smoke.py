@@ -43,10 +43,20 @@ the same generators on the CPU, their targets decoded back to the
 annotations), the seccrop transform's host time with the native resize
 and the dense one in turns, ``train.main`` of Painter ViT-L on the
 generated sets with two spawned workers on the native ops, and
-``python -m painter_tpu_torch.dryrun 2 --procs 2`` on the card. Checks
-that each path went through its
-kernels, and that K2, K3, K4 and K5 give the same bits on two runs of the
-same inputs. Prints its findings, then a ``{"kernels": [...]}`` line and,
+``python -m painter_tpu_torch.dryrun 2 --procs 2`` on the card. After
+them, the shapes past the ViT-L kernels (none of the paths above launches
+a width-generic kernel): the width-generic kernels K1g / K2g (every head
+dim and key grid of the JAX kernel's domain) and K3g / K4g (every decoder
+width <= 128) against their plain versions at the JAX package's
+kernel-test shapes; tiny_test (head_dim 16, decoder width 8) serving
+through ``InContextModel`` in bf16 and fp32 against plain attention, also
+windowed (2x2 windows), and training through ``train.main --model
+tiny_test --decoder_impl fused``; an fp32 b1 gradient check of Painter
+ViT-L at 1280x640 (K1 and K2g on the 80x40 grid, K3 / K4 at 1280x640);
+and Painter ViT-L training through ``train.main --input_size 1280 640``
+(bf16, fused tail, b1 x accum 2). Checks that each path went through its
+kernels, and that K2, K3, K4, K5, K2g and K4g give the same bits on two
+runs of the same inputs. Prints its findings, then a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is not 0 and the last line is not printed. Needs a CUDA device;
 it imports nothing of JAX.
@@ -73,11 +83,12 @@ BF16, FP32 = (torch.bfloat16,), (torch.bfloat16, torch.float32)
 # L=1568 (56x28) every BH the main path gives it: 16 = b1 trunk, 32 = b1
 # prefix (2 streams x 16 heads), 64 = bucket-4 trunk, 128 = bucket-4
 # prefix and b8 trunk, 256 = b8 prefix. Beside them the COCO-eval
-# 1120x560 grid and the 14x14 windows of the windowed preset (b8).
+# 1120x560 grid, the 14x14 windows of the windowed preset (b8) and the
+# trainer's 80x40 grid at --input_size 1280 640 (b1).
 K1_SHAPES = ((16, (56, 28), BF16), (32, (56, 28), FP32),
              (64, (56, 28), BF16), (128, (56, 28), FP32),
              (256, (56, 28), BF16), (16, (70, 35), FP32),
-             (256, (14, 14), FP32))
+             (256, (14, 14), FP32), (16, (80, 40), FP32))
 # the shape of most main-path launches (3 + 21 of the 72), for the
 # kernels line
 K1_MAIN_SHAPE = (128, (56, 28))
@@ -135,12 +146,13 @@ def phase_build():
                     print(f"# ptxas {name}: {line.strip()}")
 
 
-def k1_case(bh, grid, dtype, seed, iters):
-    """K1 and its plain version on one input; returns the row of numbers."""
+def k1_case(bh, grid, dtype, seed, iters, d=64, fn=None):
+    """K1 (or ``fn``, another forward wrapper) and its plain version on one
+    input at head dim ``d``; returns the row of numbers."""
     from painter_tpu_torch.kernels import flash_relpos as fr
+    fn = fn or fr.flash_attention_relpos
     g = torch.Generator(device="cuda").manual_seed(seed)
     length = grid[0] * grid[1]
-    d = 64
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
@@ -148,7 +160,7 @@ def k1_case(bh, grid, dtype, seed, iters):
     q, k, v = (rnd(bh, length, d) for _ in range(3))
     rel_h, rel_w = rnd(bh, length, grid[0]), rnd(bh, length, grid[1])
     scale = d ** -0.5
-    out, lse = fr.flash_attention_relpos(q, k, v, rel_h, rel_w, grid, scale)
+    out, lse = fn(q, k, v, rel_h, rel_w, grid, scale)
     ref, ref_lse = fr.flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
                                                        grid, scale)
     torch.cuda.synchronize()
@@ -158,8 +170,7 @@ def k1_case(bh, grid, dtype, seed, iters):
     check(err <= K1_TOL[dtype] and lse_err <= 1e-3,
           f"K1 {dtype} {bh}x{grid}: max abs err {err} (tol "
           f"{K1_TOL[dtype]}), lse err {lse_err}")
-    ms = event_ms(lambda: fr.flash_attention_relpos(q, k, v, rel_h, rel_w,
-                                                   grid, scale), iters)
+    ms = event_ms(lambda: fn(q, k, v, rel_h, rel_w, grid, scale), iters)
     plain_ms = event_ms(lambda: fr.flash_attention_relpos_reference(
         q, k, v, rel_h, rel_w, grid, scale), max(1, iters // 2))
     bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(
@@ -168,7 +179,7 @@ def k1_case(bh, grid, dtype, seed, iters):
     library_ms = event_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale),
                          iters)
     del bias
-    # the card's own attention at head_dim 64 with no bias: not the same
+    # the card's own attention with no bias: not the same
     # function, a yardstick of the kernel's design only
     nobias_ms = event_ms(lambda: sdpa(q, k, v, scale=scale), iters)
     flops = 4 * bh * length * length * d
@@ -177,7 +188,7 @@ def k1_case(bh, grid, dtype, seed, iters):
         + bh * length * 4
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return {"bh": bh, "grid": list(grid), "dtype": str(dtype),
+    return {"bh": bh, "grid": list(grid), "dtype": str(dtype), "hd": d,
             "max_abs_err": err, "lse_err": lse_err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "sdpa_nobias_ms": nobias_ms, "flop": flops, "bytes": nbytes,
@@ -211,17 +222,19 @@ def phase_k1(label):
     return rows
 
 
-def k2_case(bh, grid, dtype, seed, iters):
-    """K2 and its plain backward on one input; returns the row of numbers.
+def k2_case(bh, grid, dtype, seed, iters, d=64, fn=None):
+    """K2 (or ``fn``, another backward wrapper) and its plain backward on
+    one input at head dim ``d``; returns the row of numbers.
 
     out and lse come from K1's plain version on the same q, k, v and rel
     terms, dO from a seeded normal; both backwards read the same tensors.
-    K2 runs twice and must agree with itself to the bit (no atomics).
+    The kernel runs twice and must agree with itself to the bit (no
+    atomics).
     """
     from painter_tpu_torch.kernels import flash_relpos as fr
+    fn = fn or fr.flash_attention_relpos_bwd
     g = torch.Generator(device="cuda").manual_seed(seed)
     length = grid[0] * grid[1]
-    d = 64
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
@@ -232,8 +245,8 @@ def k2_case(bh, grid, dtype, seed, iters):
     out, lse = fr.flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
                                                    grid, scale)
     args = (q, k, v, rel_h, rel_w, out, lse, dout, grid, scale)
-    got = fr.flash_attention_relpos_bwd(*args)
-    again = fr.flash_attention_relpos_bwd(*args)
+    got = fn(*args)
+    again = fn(*args)
     ref = fr.flash_attention_relpos_bwd_reference(*args)
     torch.cuda.synchronize()
     names = ("dq", "dk", "dv", "d_rel_h", "d_rel_w")
@@ -253,7 +266,7 @@ def k2_case(bh, grid, dtype, seed, iters):
           f"K2 {dtype} {bh}x{grid}: max abs err / max |plain| per output "
           f"{rel_errs} (tol {K2_TOL[dtype]})")
     del got, ref
-    ms = event_ms(lambda: fr.flash_attention_relpos_bwd(*args), iters)
+    ms = event_ms(lambda: fn(*args), iters)
     plain_ms = event_ms(lambda: fr.flash_attention_relpos_bwd_reference(*args),
                        max(1, iters // 2))
     # the library's backward: SDPA with the materialized bias as a
@@ -280,7 +293,7 @@ def k2_case(bh, grid, dtype, seed, iters):
               + 3 * bh * length * d) * es + bh * length * 4
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return {"bh": bh, "grid": list(grid), "dtype": str(dtype),
+    return {"bh": bh, "grid": list(grid), "dtype": str(dtype), "hd": d,
             "max_abs_err": err, "rel_errs": rel_errs, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "sdpa_nobias_ms": nobias_ms, "flop": flops,
@@ -311,11 +324,13 @@ def phase_k2(label):
 
 
 # K3 / K4 at the trainer's b2 (2, 896, 448) in bf16 and fp32, a ragged
-# shape (neither side a multiple of the 16 / 14-pixel tiles) and the
-# one-token-row grid (16 pixel rows), both GELU flavours where cheap
+# shape (neither side a multiple of the 16 / 14-pixel tiles), the
+# one-token-row grid (16 pixel rows) and the trainer's b1 at
+# --input_size 1280 640, both GELU flavours where cheap
 TAIL_SHAPES = (((2, 896, 448), FP32, (True,)),
                ((2, 37, 29), FP32, (True, False)),
-               ((2, 16, 448), BF16, (True, False)))
+               ((2, 16, 448), BF16, (True, False)),
+               ((1, 1280, 640), FP32, (True,)))
 TAIL_MAIN_SHAPE = (2, 896, 448)
 # kernel vs plain, max abs error over max |plain| of each output. bf16:
 # both round at the same points (weights, GELU output, du, the outputs),
@@ -343,13 +358,16 @@ def _stock_tail(pix, w1, b1, lns, lnb, w2, b2, approx):
                                       b2.to(dt)).permute(0, 2, 3, 1)
 
 
-def tail_case(shape, dtype, approx, seed, iters):
-    """K3 and K4 against their plain versions on one input; the rows of
-    numbers of both."""
+def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False):
+    """K3 and K4 (with ``generic``, K3g and K4g) against their plain
+    versions on one input of width ``c``; the rows of numbers of both."""
     from painter_tpu_torch.kernels import decoder_head as dh
+    fwd = dh.fused_decoder_tail_generic if generic else dh.fused_decoder_tail
+    bwd = (dh.fused_decoder_tail_bwd_generic if generic
+           else dh.fused_decoder_tail_bwd)
+    names = dh.GENERIC_KERNEL_NAMES if generic else dh.KERNEL_NAMES
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, h, w = shape
-    c = 64
 
     def rnd(*sh, scale=1.0, shift=0.0):
         return torch.randn(*sh, generator=g, device="cuda") * scale + shift
@@ -359,11 +377,11 @@ def tail_case(shape, dtype, approx, seed, iters):
               rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1),
               rnd(3, c, 1, 1, scale=c ** -0.5), rnd(3, scale=0.1))
     go = rnd(b, h, w, 3).to(dtype)
-    out = dh.fused_decoder_tail(pix, *params, approx)
-    out_again = dh.fused_decoder_tail(pix, *params, approx)
+    out = fwd(pix, *params, approx)
+    out_again = fwd(pix, *params, approx)
     ref = dh.fused_decoder_tail_reference(pix, *params, approx)
-    got_g = dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx)
-    again = dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx)
+    got_g = bwd(pix, *params[:5], go, approx)
+    again = bwd(pix, *params[:5], go, approx)
     ref_g = dh.fused_decoder_tail_bwd_reference(pix, *params[:5], go, approx)
     torch.cuda.synchronize()
     check(torch.equal(out, out_again),
@@ -398,11 +416,11 @@ def tail_case(shape, dtype, approx, seed, iters):
     rows = {}
     for name, flops, nbytes, fn, plain, lib in (
             ("K3", 2 * n_pix * c * (9 * c + 3), n_pix * (c + 3) * es,
-             lambda: dh.fused_decoder_tail(pix, *params, approx),
+             lambda: fwd(pix, *params, approx),
              lambda: dh.fused_decoder_tail_reference(pix, *params, approx),
              lambda: _stock_tail(pix, *params, approx)),
             ("K4", 2 * n_pix * c * (27 * c + 6), n_pix * (2 * c + 3) * es,
-             lambda: dh.fused_decoder_tail_bwd(pix, *params[:5], go, approx),
+             lambda: bwd(pix, *params[:5], go, approx),
              lambda: dh.fused_decoder_tail_bwd_reference(pix, *params[:5],
                                                          go, approx),
              None)):
@@ -418,10 +436,11 @@ def tail_case(shape, dtype, approx, seed, iters):
         t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
         rows[name] = {
             "shape": list(shape), "dtype": str(dtype), "approx": approx,
+            "c": c,
             "max_abs_err": k3_abs if name == "K3" else k4_abs,
             "rel_err": k3_err if name == "K3" else max(k4_errs.values()),
             "ms": event_ms(fn, iters),
-            "device_ms": device_ms(fn, iters, dh.KERNEL_NAMES),
+            "device_ms": device_ms(fn, iters, names),
             "plain_ms": event_ms(plain, max(1, iters // 2)),
             "library_ms": event_ms(lib, iters), "flop": flops,
             "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
@@ -3185,6 +3204,399 @@ def phase_data_front_end(label):
     return k1, k2, k3, k4
 
 
+# ---------------------------------------------------------------------------
+# The shapes past the ViT-L kernels: K1g-K4g, tiny_test, ViT-L at 1280x640
+# ---------------------------------------------------------------------------
+
+# K1g / K2g (csrc/flash_relpos_generic.cu) at the JAX package's
+# kernel-test shapes ((BH, hd, grid): hd 16 on 8x4 and 12x6, hd 120 on
+# 16x8, hd 8 on 6x4), tiny_test's serving and training shapes (hd 16 on
+# its 8x4 grid at b2 x 2 heads; 2x2 windows, 16 windows x b2 x 2 heads)
+# and grids past the ViT-L kernels' rel-term limits (kw 3; kw 200, past a
+# 64-key tile)
+GENERIC_ATTN_SHAPES = ((4, 16, (8, 4)), (4, 16, (12, 6)), (4, 120, (16, 8)),
+                       (4, 8, (6, 4)), (64, 16, (2, 2)), (4, 32, (40, 3)),
+                       (2, 32, (2, 200)))
+# the ViT-L update at --input_size 1280 640 (b1 x 16 heads on the 80x40
+# grid): K2g's main-path shape; K1g timed there too, beside K1, which
+# takes that forward
+GENERIC_MAIN_SHAPE = (16, 64, (80, 40))
+# K3g / K4g (csrc/decoder_tail_generic.cu) at the JAX tests' C = 8 on
+# 16x12 and 12x8, tiny_test's b2 (2, 64, 32, 8) (the main-path shape),
+# and widths that pad (40 on a ragged 37x29; 128)
+GENERIC_TAIL_SHAPES = (((2, 16, 12), 8), ((2, 12, 8), 8), ((2, 64, 32), 8),
+                       ((2, 37, 29), 40), ((1, 16, 16), 128))
+GENERIC_TAIL_MAIN = ((2, 64, 32), 8)
+TINY = "tiny_test"
+# tiny_test with 2x2 windows in half its blocks: key grids of width 2
+TINY_WINDOWED = dict(window_block_indexes=(0, 3, 4))
+PAINTER_1280 = (1280, 640)
+
+
+def _generic_counts():
+    from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    return (fr.flash_attention_relpos_generic,
+            fr.flash_attention_relpos_bwd_generic,
+            dh.fused_decoder_tail_generic, dh.fused_decoder_tail_bwd_generic)
+
+
+def _vitl_counts():
+    from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    return (fr.flash_attention_relpos, fr.flash_attention_relpos_bwd,
+            dh.fused_decoder_tail, dh.fused_decoder_tail_bwd)
+
+
+def _zero_counts():
+    for fn in _generic_counts() + _vitl_counts():
+        fn.launches = 0
+
+
+def _read_counts():
+    """(K1, K2, K3, K4) and (K1g, K2g, K3g, K4g) launches."""
+    return (tuple(fn.launches for fn in _vitl_counts()),
+            tuple(fn.launches for fn in _generic_counts()))
+
+
+def _attn_line(what, row, label):
+    peak = "989" if row["dtype"] == str(torch.bfloat16) else "67"
+    errs = (" ".join(f"{n} {e:.2e}" for n, e in row["rel_errs"].items())
+            + "; two runs bitwise equal") if "rel_errs" in row else \
+        f"lse err {row['lse_err']:.2e}"
+    print(f"# {what} {row['dtype']} BH={row['bh']} hd={row['hd']} "
+          f"grid={row['grid'][0]}x{row['grid'][1]}: max_abs_err "
+          f"{row['max_abs_err']:.3e} ({errs}) kernel_ms {row['ms']:.4f} "
+          f"({_rate(row)}) plain_ms {row['plain_ms']:.4f} library_ms(sdpa"
+          f"{' bwd' if 'rel_errs' in row else ''}+bias) "
+          f"{row['library_ms']:.4f} sdpa_nobias_ms(not the same function) "
+          f"{row['sdpa_nobias_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+          f"({row['flop']:.4e} FLOP at {peak} TFLOP/s, {row['bound_by']}) "
+          f"[{label}]")
+
+
+def phase_generic_attention(label):
+    """K1g / K2g against their plain versions at every shape of
+    GENERIC_ATTN_SHAPES (each routed to them by ``attention_route``) and
+    at GENERIC_MAIN_SHAPE, in bf16 and fp32; K2g twice, bitwise."""
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    rows = []
+    for i, (bh, d, grid) in enumerate(GENERIC_ATTN_SHAPES):
+        for dtype in FP32:
+            length = grid[0] * grid[1]
+            check(fr.attention_route(d, grid, length, dtype) == "generic"
+                  and fr.attention_route(d, grid, length, dtype,
+                                         backward=True) == "generic",
+                  f"hd {d} grid {grid} is not routed to K1g / K2g")
+            before = _read_counts()
+            fwd = k1_case(bh, grid, dtype, seed=300 + i, iters=5, d=d)
+            bwd = k2_case(bh, grid, dtype, seed=400 + i, iters=5, d=d)
+            after = _read_counts()
+            check(after[0] == before[0] and after[1][0] > before[1][0]
+                  and after[1][1] > before[1][1],
+                  f"hd {d} grid {grid}: launches {before} -> {after}")
+            _attn_line("K1g", fwd, label)
+            _attn_line("K2g", bwd, label)
+            rows += [("K1g", fwd), ("K2g", bwd)]
+    bh, d, grid = GENERIC_MAIN_SHAPE
+    for dtype in FP32:
+        fwd = k1_case(bh, grid, dtype, seed=500, iters=3, d=d,
+                      fn=fr.flash_attention_relpos_generic)
+        bwd = k2_case(bh, grid, dtype, seed=501, iters=3, d=d)
+        _attn_line("K1g (called directly; K1 takes this forward)", fwd,
+                   label)
+        _attn_line("K2g (the ViT-L 1280x640 update's shape)", bwd, label)
+        rows += [("K1g", fwd), ("K2g", bwd)]
+    return rows
+
+
+def phase_generic_tail(label):
+    """K3g / K4g against their plain versions at GENERIC_TAIL_SHAPES, in
+    bf16 and fp32, both GELU flavours; each twice, bitwise."""
+    from painter_tpu_torch.kernels import decoder_head as dh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for i, (shape, c) in enumerate(GENERIC_TAIL_SHAPES):
+        check(dh.decoder_route(c, torch.bfloat16) == "generic",
+              f"C={c} is not routed to K3g / K4g")
+        for dtype in FP32:
+            for approx in (True, False):
+                r = tail_case(shape, dtype, approx, seed=600 + i, iters=5,
+                              c=c, generic=True)
+                rows.append(r)
+                k4e = " ".join(f"{n} {e:.1e}"
+                               for n, e in r["K4"]["rel_errs"].items())
+                for name in ("K3g", "K4g"):
+                    x = r[name[:2]]
+                    print(f"# {name} {x['dtype']} {shape} C={c} "
+                          f"{'tanh' if approx else 'erf'}: err/max|plain| "
+                          f"{x['rel_err']:.2e}"
+                          + (f" ({k4e})" if name == "K4g" else "")
+                          + " (two runs bitwise equal)"
+                          + f" kernel_ms {x['ms']:.4f} ({_rate(x)}) "
+                          f"device_ms {_opt(x['device_ms'])} plain_ms "
+                          f"{x['plain_ms']:.4f} library_ms(stock tail "
+                          f"{'fwd' if name == 'K3g' else 'bwd'}) "
+                          f"{x['library_ms']:.4f} bound_ms "
+                          f"{x['bound_ms']:.4f} ({x['flop']:.4e} FLOP, "
+                          f"{x['bound_by']}) [{label}]")
+    return rows
+
+
+def phase_tiny_serving(label):
+    """tiny_test (hd 16 on its 8x4 grid, decoder width 8) and its windowed
+    variant (2x2 windows) through ``InContextModel`` with the default
+    ``attn_impl="kernel"`` in bf16 and fp32, ``run_queries`` and
+    ``run_queries_shared``, against the same model with plain attention;
+    K1g launched, K1 not. Returns K1g's launches."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import engine
+    total = 0
+    for name, kw in (("global", {}), ("windowed", TINY_WINDOWED)):
+        for dtype in ("bfloat16", "float32"):
+            cfg = configs.get_config(TINY, dtype=dtype, **kw)
+            model = _seeded_model(cfg, 11)
+            res = cfg.img_size[1]
+            rng = np.random.RandomState(12)
+            img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+            queries = [rng.rand(res, res, 3) for _ in range(3)]
+            imgs, tgts = engine.build_query_batch(queries, img2, tgt2)
+            outs = {}
+            for impl in ("plain", "kernel"):
+                eng = engine.InContextModel(cfg, model, attn_impl=impl,
+                                            device="cuda")
+                _zero_counts()
+                outs[impl] = (eng.run_queries(imgs, tgts, real_count=3),
+                              eng.run_queries_shared(np.stack(queries),
+                                                     img2, tgt2))
+                vitl, gen = _read_counts()
+                if impl == "kernel":
+                    total += gen[0]
+                    check(gen[0] == 2 * cfg.depth and vitl == (0,) * 4
+                          and gen[1:] == (0, 0, 0),
+                          f"tiny {name} {dtype}: launches {vitl} {gen}")
+                else:
+                    check(gen == (0,) * 4 and vitl == (0,) * 4,
+                          f"plain attention launched {vitl} {gen}")
+            tol = FWD_BF16_TOL if dtype == "bfloat16" else FWD_FP32_TOL
+            errs = []
+            for got, ref in zip(outs["kernel"], outs["plain"]):
+                check(got.shape == ref.shape == (3, res, res, 3)
+                      and np.isfinite(got).all(),
+                      f"tiny {name} {dtype}: {got.shape} / {ref.shape}")
+                errs.append(float(np.abs(got - ref).max()))
+            print(f"# tiny_test {name} {dtype} serving (K1g {2 * cfg.depth} "
+                  f"launches, one forward per call): run_queries / "
+                  f"run_queries_shared max abs vs plain attention "
+                  f"{errs[0]:.3e} / {errs[1]:.3e} (tol {tol}) [{label}]")
+            check(max(errs) <= tol, f"tiny {name} {dtype}: {errs}")
+            del model
+    return total
+
+
+def _changing_updates(step_lib, changed):
+    """Wrap ``step_lib.make_train_step`` (the trainer's step module):
+    after each update, append how many parameter tensors differ from
+    before it. Returns the real function, to restore."""
+    real = step_lib.make_train_step
+
+    def make_train_step(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def run(model, batch, gen):
+            before = [p.detach().clone() for p in model.parameters()]
+            out = step(model, batch, gen)
+            changed.append(sum(not torch.equal(a, p.detach())
+                               for a, p in zip(before, model.parameters())))
+            del before
+            return out
+        return run
+    step_lib.make_train_step = make_train_step
+    return real
+
+
+def _train_main(label, what, model, input_size, dtype, batch, accum,
+                updates, val_batches, extra=()):
+    """``train.main`` on a synthetic dataset (``_write_dataset``) with the
+    fused tail; returns (launches (K1-K4, K1g-K4g), losses, changed
+    parameter tensors per update, depth)."""
+    import os
+    import tempfile
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.train import step as step_lib
+    from painter_tpu_torch.train import train
+    tmp = tempfile.TemporaryDirectory()
+    data = os.path.join(tmp.name, "data")
+    os.makedirs(data)
+    pairs = _write_dataset(data)
+    out = os.path.join(tmp.name, "run")
+    cfg = configs.get_config(model, img_size=input_size)
+    length = cfg.num_patches
+    args = train.get_args_parser().parse_args([
+        "--data_path", data, "--json_path", pairs, "--val_json_path", pairs,
+        "--output_dir", out, "--model", model, "--dtype", dtype,
+        "--input_size", *map(str, input_size),
+        "--num_mask_patches", str(length // 2),
+        "--max_mask_patches_per_block", str(length // 4),
+        "--min_mask_patches_per_block", str(min(16, length // 8)),
+        "--batch_size", str(batch), "--accum_iter", str(accum),
+        "--epochs", "1", "--max_steps_per_epoch", str(updates),
+        "--warmup_epochs", "0", "--remat_policy", "save_kernel",
+        "--decoder_impl", "fused", "--print_freq", "1", *extra])
+    changed = []
+    real = _changing_updates(step_lib, changed)
+    _zero_counts()
+    try:
+        result = train.main(args)
+    finally:
+        step_lib.make_train_step = real
+    counts = _read_counts()
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    with open(os.path.join(out, "log.txt")) as f:
+        stats = json.loads(f.readline())
+    n_params = sum(1 for _ in result["model"].parameters())
+    losses = [s["loss"] for s in scalars]
+    check(result["step"] == updates, f"{what}: {result['step']} updates")
+    check(len(losses) == updates and all(np.isfinite(losses))
+          and all(np.isfinite(s["grad_norm"]) for s in scalars)
+          and np.isfinite(stats["val_loss"]),
+          f"{what}: non-finite loss or grad_norm {scalars} {stats}")
+    check(len(changed) == updates and all(changed),
+          f"{what}: parameter tensors changed per update {changed}")
+    print(f"# {what}: {updates} updates (b{batch} x accum {accum}), losses "
+          f"{[round(x, 5) for x in losses]}, val loss "
+          f"{stats['val_loss']:.5f}, parameter tensors changed per update "
+          f"{changed} of {n_params}; launches K1-K4 {counts[0]}, "
+          f"K1g-K4g {counts[1]} [{label}]")
+    depth = result["model"].cfg.depth
+    del result
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return counts, losses, changed, depth
+
+
+def phase_tiny_train(label):
+    """tiny_test trains through ``train.main --model tiny_test
+    --decoder_impl fused`` (bf16, b2 x accum 2, 3 updates, validation):
+    K1g / K2g / K3g / K4g counted, no ViT-L kernel; then one fused-tail
+    micro-step of the windowed variant (K2g at 2x2 windows, kw 2)."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.train import optim
+    from painter_tpu_torch.train import step as step_lib
+    updates, accum, val = 3, 2, 3
+    counts, _, _, depth = _train_main(
+        label, "train.main --model tiny_test", TINY, (64, 32), "bfloat16",
+        2, accum, updates, val)
+    micro = updates * accum
+    check(counts[0] == (0,) * 4 and counts[1] == (
+        depth * (micro + val), depth * micro, micro, micro),
+        f"tiny_test training launched {counts}")
+    cfg = configs.get_config(TINY, dtype="bfloat16", **TINY_WINDOWED)
+    model = _seeded_model(cfg, 13).train()
+    opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
+        warmup_epochs=0.0, steps_per_epoch=1))
+    step = step_lib.make_train_step(cfg, opt, accum_iter=1,
+                                    decoder_impl="fused")
+    before = [p.detach().clone() for p in model.parameters()]
+    _zero_counts()
+    m = step(model, _train_batch(cfg, 2, seed=14),
+             torch.Generator(device="cuda").manual_seed(15))
+    win = _read_counts()
+    loss = float(m["loss"])
+    changed = sum(not torch.equal(a, p.detach())
+                  for a, p in zip(before, model.parameters()))
+    print(f"# tiny_test windowed (2x2 windows in blocks "
+          f"{TINY_WINDOWED['window_block_indexes']}), one fused-tail "
+          f"micro-step: loss {loss:.5f}, {changed} parameter tensors "
+          f"changed, launches K1-K4 {win[0]}, K1g-K4g {win[1]} [{label}]")
+    check(np.isfinite(loss) and changed > 0, f"windowed step {loss}")
+    check(win[0] == (0,) * 4 and win[1] == (depth, depth, 1, 1),
+          f"windowed tiny_test step launched {win}")
+    gen = tuple(a + b for a, b in zip(counts[1], win[1]))
+    return gen
+
+
+def phase_grad_check_1280(label):
+    """Painter ViT-L at 1280x640, fp32 b1: the loss and every parameter's
+    gradient with K1 / K2g (the 80x40 grid) against plain attention, and
+    with K3 / K4 against the stock tail, at ``phase_grad_check``'s
+    tolerances."""
+    from painter_tpu_torch import configs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(PAINTER, dtype="float32",
+                             img_size=PAINTER_1280)
+    model = _seeded_model(cfg, 21).train()
+    batch = _train_batch(cfg, 1, seed=22)
+    _zero_counts()
+    _grad_pair(model, batch, "K1/K2g vs plain attention at 1280x640", label,
+               True, ("kernel", "xla"), ("plain", "xla"))
+    _grad_pair(model, batch, "K3/K4 vs stock tail at 1280x640", label, True,
+               ("kernel", "fused"), ("kernel", "xla"))
+    vitl, gen = _read_counts()
+    print(f"# grad check 1280x640: launches K1-K4 {vitl}, K1g-K4g {gen}")
+    check(vitl[1] == 0 and gen == (0, 3 * cfg.depth, 0, 0)
+          and vitl[2:] == (1, 1),
+          f"1280x640 gradient check launched {vitl} {gen}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_train_1280(label):
+    """Painter ViT-L at full width trains through ``train.main
+    --input_size 1280 640`` (bf16, fused tail, b1 x accum 2, 3 updates,
+    validation): K1 on the 80x40 grid, K2g its backward, K3 / K4 at
+    1280x640; each loss finite, each update changes the parameters.
+    Returns (K1, K2g, K3, K4) launches and the ms per update."""
+    updates, accum, val = 3, 2, 3
+    t0 = time.perf_counter()
+    counts, _, _, depth = _train_main(
+        label, "train.main Painter ViT-L --input_size 1280 640", PAINTER,
+        PAINTER_1280, "bfloat16", 1, accum, updates, val)
+    micro = updates * accum
+    check(counts[0] == (depth * (micro + val), 0, micro, micro)
+          and counts[1] == (0, depth * micro, 0, 0),
+          f"ViT-L 1280x640 training launched {counts}")
+    print(f"# ViT-L 1280x640 training drive: {time.perf_counter() - t0:.1f}"
+          f" s with model build, data workers and validation")
+    return counts[0][0], counts[1][1], counts[0][2], counts[0][3]
+
+
+def train_1280_times(label):
+    """ms per update of Painter ViT-L at 1280x640 (bf16, b1 x accum 2,
+    save_kernel, fused tail) on a device-resident batch, and K2g's share:
+    its device time in one profiled update."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.train import optim
+    from painter_tpu_torch.train import step as step_lib
+    cfg = configs.get_config(PAINTER, dtype="bfloat16",
+                             img_size=PAINTER_1280)
+    model = _seeded_model(cfg, 31).train()
+    opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
+        warmup_epochs=0.0, steps_per_epoch=10))
+    step = step_lib.make_train_step(cfg, opt, accum_iter=2,
+                                    decoder_impl="fused")
+    batch = _train_batch(cfg, 1, seed=32, accum=2)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    _timed_updates(step, model, batch, gen, 1)
+    times = _timed_updates(step, model, batch, gen, 3)
+    from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
+    by_kernel = device_ms_by_kernel(lambda: step(model, batch, gen), 1,
+                                    ("dq_kernel<", "dkv_kernel<"))
+    k2g = sum(by_kernel.values())
+    ms = 1e3 * statistics.median(times)
+    print(f"# ViT-L 1280x640 update (b1 x accum 2, bf16, save_kernel, fused "
+          f"tail): {ms:.2f} ms median of {[round(1e3 * x, 2) for x in times]}"
+          f"; K2g device time in one update {k2g:.2f} ms "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in by_kernel.items())}; "
+          f"{2 * cfg.depth} calls) [{label}]")
+    del model, opt
+    torch.cuda.empty_cache()
+    return ms, k2g
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3192,9 +3604,9 @@ def timed(name, fn, *args):
     return out
 
 
-def _kernel_entry(name, replaces, launches, row):
+def _kernel_entry(name, replaces, launches, row, source=None):
     return {"name": name, "route": "cuda",
-            "source": f"painter_tpu_torch/kernels/csrc/{name}.cu",
+            "source": f"painter_tpu_torch/kernels/csrc/{source or name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3219,6 +3631,9 @@ def main():
     k2_rows = timed("K2 vs plain", phase_k2, label)
     tail_rows = timed("K3/K4 vs plain", phase_tail, label)
     k5_rows = timed("K5 vs plain", phase_k5, label)
+    gen_attn_rows = timed("K1g/K2g vs plain", phase_generic_attention, label)
+    gen_tail_rows = timed("K3g/K4g vs plain", phase_generic_tail, label)
+    _zero_counts()  # every ViT-L 896x448 path below launches no K1g-K4g
     model, serve_k1 = timed("serving drive", phase_model, label)
     tools_k1, tools_k2 = timed("tools", phase_tools, model, label)
     bf16_times = timed("serving times", phase_times, model, label)
@@ -3251,6 +3666,16 @@ def main():
                                                phase_gloo_ranks, label)
     fe_k1, fe_k2, fe_k3, fe_k4 = timed("data front end",
                                        phase_data_front_end, label)
+    vitl_gen = _read_counts()[1]
+    print(f"# K1g-K4g launches on every ViT-L 896x448 path above: "
+          f"{vitl_gen}")
+    check(vitl_gen == (0,) * 4,
+          f"a ViT-L 896x448 path launched a generic kernel: {vitl_gen}")
+    tiny_k1g = timed("tiny_test serving", phase_tiny_serving, label)
+    tiny_gen = timed("tiny_test training", phase_tiny_train, label)
+    timed("gradient check 1280x640", phase_grad_check_1280, label)
+    t1280 = timed("training drive 1280x640", phase_train_1280, label)
+    timed("training times 1280x640", train_1280_times, label)
     infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1 + \
         dp_k1
     dist_k = (remat_k1 + nccl_k1 + gloo_k1 + fe_k1 + tools_k1,
@@ -3270,26 +3695,51 @@ def main():
           f"launches: int8-fused "
           f"serving "
           f"path {serve_k5}, CLI --quant int8-fused {cli_k5}, eval "
-          f"--quant int8-fused {eval_k5}")
+          f"--quant int8-fused {eval_k5}; ViT-L 1280x640 training (K1, "
+          f"K2g, K3, K4) {t1280}; tiny_test: K1g serving {tiny_k1g}, "
+          f"training (K1g, K2g, K3g, K4g) {tiny_gen}")
     tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
                 TAIL_MAIN_SHAPE and r["K3"]["dtype"] == str(torch.bfloat16))
     k5_row = next(r for r in k5_rows if r["m"] == K5_MAIN_M)
+
+    def gen_row(kind, bh, d, grid):
+        return next(r for k, r in gen_attn_rows if k == kind
+                    and (r["bh"], r["hd"], tuple(r["grid"])) == (bh, d, grid)
+                    and r["dtype"] == str(torch.bfloat16))
+    gen_tail = next(r for r in gen_tail_rows if (
+        tuple(r["K3"]["shape"]), r["K3"]["c"]) == GENERIC_TAIL_MAIN
+        and r["K3"]["dtype"] == str(torch.bfloat16) and r["K3"]["approx"])
     kernels = [
         _kernel_entry("flash_relpos_fwd",
                       "painter_tpu/kernels/flash_relpos.py:399",
-                      serve_k1 + infer_k1 + train_k1 + dist_k[0],
+                      serve_k1 + infer_k1 + train_k1 + dist_k[0] + t1280[0],
                       _row(k1_rows, K1_MAIN_SHAPE)),
         _kernel_entry("flash_relpos_bwd",
                       "painter_tpu/kernels/flash_relpos.py:438",
                       train_k2 + dist_k[1], _row(k2_rows, K2_MAIN_SHAPE)),
         _kernel_entry("decoder_tail_fwd",
                       "painter_tpu/kernels/decoder_head.py:180",
-                      train_k3 + dist_k[2], tail["K3"]),
+                      train_k3 + dist_k[2] + t1280[2], tail["K3"]),
         _kernel_entry("decoder_tail_bwd",
                       "painter_tpu/kernels/decoder_head.py:304",
-                      train_k4 + dist_k[3], tail["K4"]),
+                      train_k4 + dist_k[3] + t1280[3], tail["K4"]),
         _kernel_entry("int8_mlp", "painter_tpu/kernels/int8_mlp.py:87",
-                      serve_k5 + cli_k5 + eval_k5, k5_row)]
+                      serve_k5 + cli_k5 + eval_k5, k5_row),
+        _kernel_entry("flash_relpos_generic_fwd",
+                      "painter_tpu/kernels/flash_relpos.py:399",
+                      tiny_k1g + tiny_gen[0],
+                      gen_row("K1g", 4, 16, (8, 4)), "flash_relpos_generic"),
+        _kernel_entry("flash_relpos_generic_bwd",
+                      "painter_tpu/kernels/flash_relpos.py:438",
+                      t1280[1] + tiny_gen[1],
+                      gen_row("K2g", *GENERIC_MAIN_SHAPE),
+                      "flash_relpos_generic"),
+        _kernel_entry("decoder_tail_generic_fwd",
+                      "painter_tpu/kernels/decoder_head.py:180",
+                      tiny_gen[2], gen_tail["K3"], "decoder_tail_generic"),
+        _kernel_entry("decoder_tail_generic_bwd",
+                      "painter_tpu/kernels/decoder_head.py:304",
+                      tiny_gen[3], gen_tail["K4"], "decoder_tail_generic")]
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,8 +40,9 @@ import torch.distributed as dist
 from painter_tpu_torch.device import resolve_device
 
 FLAGSHIP = "painter_vit_large_patch16_input896x448_win_dec64_8glb_sl1"
-# the grid width is 10: the card's bf16 attention backward takes grid
-# widths in [10, 40] (kernels/flash_relpos.py BWD_BF16_KW)
+# the grid width is 10: on the card the bf16 attention backward stays on
+# the ViT-L kernel, which takes grid widths in [10, 40]
+# (kernels/flash_relpos.py attention_route)
 TINY = dict(img_size=(160, 80), patch_size=8, embed_dim=256, num_heads=4,
             depth=6, drop_path_rate=0.1, pretrain_img_size=32,
             dtype="bfloat16")

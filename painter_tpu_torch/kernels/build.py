@@ -37,8 +37,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 NATIVE_SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-SOURCES = ("flash_relpos_fwd", "flash_relpos_bwd", "decoder_tail_fwd",
-           "decoder_tail_bwd", "int8_mlp")
+SOURCES = ("flash_relpos_fwd", "flash_relpos_bwd", "flash_relpos_generic",
+           "decoder_tail_fwd", "decoder_tail_bwd", "decoder_tail_generic",
+           "int8_mlp")
 HOST_SOURCES = ("image_ops",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

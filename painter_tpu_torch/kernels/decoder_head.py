@@ -1,11 +1,12 @@
 """The fused decoder tail: conv3x3 + bias -> LayerNorm -> GELU -> conv1x1,
 forward (K3) and backward (K4).
 
-Two hand-written CUDA kernels replace the TPU kernels of
+Hand-written CUDA kernels replace the TPU kernels of
 ``painter_tpu/kernels/decoder_head.py``: ``csrc/decoder_tail_fwd.cu``
-(``_fwd_impl``) and ``csrc/decoder_tail_bwd.cu`` (``_bwd_impl``). Their
-headers state the contracts, what bounds them on an H100 and what their
-designs do about that. The TPU kernel's layout devices (128-lane channel
+(``_fwd_impl``) and ``csrc/decoder_tail_bwd.cu`` (``_bwd_impl``) at the
+presets' C = 64, ``csrc/decoder_tail_generic.cu`` (both) at other
+widths. Their headers state the contracts, what bounds them on an H100
+and what their designs do about that. The TPU kernel's layout devices (128-lane channel
 padding, the row-block choice, the dx/dy-packed contraction) are not
 carried over.
 
@@ -30,6 +31,16 @@ conv2_w)``.
 
 Weights are in the torch layout: conv1 (C, C, 3, 3) (``decoder_pred.0``),
 conv2 (3, C, 1, 1) (``decoder_pred.3``); pixels and outputs NHWC.
+
+Widths. :func:`decoder_route` sends a width, by its shape alone, to the
+kernels built for the presets' C = 64 (``"vitl"``: any H and W) or to
+the width-generic kernels K3g / K4g (``"generic"``:
+``csrc/decoder_tail_generic.cu``, every C <= 128, zero-padded to 8, 16,
+32, 64 or 128 channels with LayerNorm over the real C). Each route counts
+its own launches: ``fused_decoder_tail.launches`` /
+``fused_decoder_tail_bwd.launches`` the C = 64 kernels,
+``fused_decoder_tail_generic.launches`` /
+``fused_decoder_tail_bwd_generic.launches`` the generic ones.
 """
 from __future__ import annotations
 
@@ -42,10 +53,15 @@ import torch.nn.functional as F
 from painter_tpu_torch.kernels import build
 
 LN_EPS = 1e-6
-CHANNELS = 64  # the kernels are built for the decoder width of the presets
+CHANNELS = 64  # the ViT-L kernels are built for the presets' decoder width
+# the widths K3g / K4g are built for; other widths are zero-padded to the
+# next
+GENERIC_CHANNELS = (8, 16, 32, 64, 128)
 # K3's and K4's device kernels, as the profiler names them
 KERNEL_NAMES = ("strip_kernel", "dw1_kernel", "decoder_tail_fwd_kernel",
                 "decoder_tail_bwd_kernel")
+# K3g's and K4g's device kernels (templates), as the profiler names them
+GENERIC_KERNEL_NAMES = ("fwd_kernel<", "du_kernel<", "dpix_kernel<")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -160,31 +176,64 @@ def _raise_if(rc: int, name: str):
                            f"{_error_string(name)(rc).decode()} ({rc})")
 
 
-def _check_pix(pix, *more):
+def decoder_route(c: int, dtype: torch.dtype) -> str:
+    """The kernel a decoder width goes to on the card, by its shape alone:
+    ``"vitl"`` (K3 / K4, C = 64) or ``"generic"`` (K3g / K4g, every other
+    C <= 128). Raises on other types and on wider tails."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"decoder_tail takes bf16 or fp32, got {dtype}")
+    if c == CHANNELS:
+        return "vitl"
+    if 1 <= c <= GENERIC_CHANNELS[-1]:
+        return "generic"
+    raise ValueError(f"decoder width {c}: the kernels take C <= "
+                     f"{GENERIC_CHANNELS[-1]}")
+
+
+def generic_channels(c: int) -> int:
+    """The width of the K3g / K4g instance that takes ``c`` channels."""
+    return next(n for n in GENERIC_CHANNELS if n >= c)
+
+
+def _check_pix(pix, *more) -> str:
+    """Checks the pixels and the other tensors' device; returns the
+    route (:func:`decoder_route`)."""
     if pix.device.type != "cuda":
         raise RuntimeError(f"decoder_tail has no kernel for {pix.device}")
-    if pix.dtype not in _DTYPES:
-        raise TypeError(f"decoder_tail takes bf16 or fp32, got {pix.dtype}")
-    if pix.dim() != 4 or pix.shape[-1] != CHANNELS:
-        raise ValueError(f"the kernels are built for (B, H, W, {CHANNELS}) "
-                         f"pixels, got {tuple(pix.shape)}")
+    if pix.dim() != 4:
+        raise ValueError(f"the kernels take (B, H, W, C) pixels, got "
+                         f"{tuple(pix.shape)}")
     for t in (pix,) + more:
         if t.device != pix.device:
             raise TypeError(f"tensors on {t.device} and {pix.device}")
+    return decoder_route(pix.shape[-1], pix.dtype)
 
 
-def _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w):
-    """Kernel layout, all in pix.dtype: W1 (3, 3, C_in, C_out) = (tap, c,
-    o), b1, LN scale, LN bias (C,), W2 (C, 3)."""
+def _pad_channels(x: torch.Tensor, n: int, dims) -> torch.Tensor:
+    """``x`` zero-padded to ``n`` along each of ``dims``."""
+    pad = [0] * (2 * x.dim())
+    for d in dims:
+        pad[2 * (x.dim() - 1 - d) + 1] = n - x.shape[d]
+    return F.pad(x, pad)
+
+
+def _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, cp=None):
+    """Kernel layout, all in pix.dtype, zero-padded to ``cp`` channels
+    (default C): W1 (3, 3, C_in, C_out) = (tap, c, o), b1, LN scale, LN
+    bias (C,), W2 (C, 3)."""
     dt = pix.dtype
     c = pix.shape[-1]
+    cp = cp or c
     if tuple(conv1_w.shape) != (c, c, 3, 3) or \
             tuple(conv2_w.shape) != (3, c, 1, 1):
         raise ValueError(f"conv weights {tuple(conv1_w.shape)} / "
                          f"{tuple(conv2_w.shape)} do not fit C={c}")
-    w1 = conv1_w.to(dt).permute(2, 3, 1, 0).contiguous()
-    w2 = conv2_w.to(dt).reshape(3, c).t().contiguous()
-    rows = [v.to(dt).reshape(-1).contiguous() for v in (conv1_b, ln_w, ln_b)]
+    w1 = _pad_channels(conv1_w.to(dt), cp, (0, 1)).permute(
+        2, 3, 1, 0).contiguous()
+    w2 = _pad_channels(conv2_w.to(dt).reshape(3, c).t(), cp,
+                       (0,)).contiguous()
+    rows = [_pad_channels(v.to(dt).reshape(-1), cp, (0,)).contiguous()
+            for v in (conv1_b, ln_w, ln_b)]
     return (w1, *rows, w2)
 
 
@@ -200,7 +249,10 @@ def fused_decoder_tail(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b,
         return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
                                             ln_b, conv2_w, conv2_b,
                                             approximate)
-    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b)
+    if _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                  conv2_b) == "generic":
+        return fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
+                                          conv2_w, conv2_b, approximate)
     pix = pix.contiguous()
     w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
                                           conv2_w)
@@ -255,7 +307,11 @@ def fused_decoder_tail_bwd(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
         return fused_decoder_tail_bwd_reference(
             pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out,
             approximate)
-    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out)
+    if _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                  grad_out) == "generic":
+        return fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w,
+                                              ln_b, conv2_w, grad_out,
+                                              approximate)
     pix = pix.contiguous()
     b, h, w, c = pix.shape
     if tuple(grad_out.shape) != (b, h, w, 3):
@@ -293,6 +349,115 @@ def fused_decoder_tail_bwd(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
 
 
 fused_decoder_tail_bwd.launches = 0
+
+
+@build.lookup
+def _generic_tiles_fn():
+    fn = build.library("decoder_tail_generic").decoder_tail_generic_tiles
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@build.lookup
+def _generic_fn(direction: str, dtype: torch.dtype):
+    fn = getattr(build.library("decoder_tail_generic"),
+                 f"decoder_tail_generic_{direction}_{_DTYPES[dtype]}")
+    n_ptrs = 8 if direction == "fwd" else 12
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                               conv2_b, approximate: bool):
+    """K3g, the width-generic forward (B, H, W, C) -> (B, H, W, 3).
+
+    Arguments as :func:`fused_decoder_tail`, which sends the widths the
+    C = 64 kernel does not take here. A CPU tensor runs the plain
+    version; a CUDA tensor launches K3g (channels zero-padded to the next
+    built width) or raises.
+    """
+    if pix.device.type == "cpu":
+        return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
+                                            ln_b, conv2_w, conv2_b,
+                                            approximate)
+    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b)
+    b, h, w, c = pix.shape
+    cp = generic_channels(c)
+    w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
+                                          conv2_w, cp)
+    pix = _pad_channels(pix, cp, (3,)).contiguous()
+    b2 = conv2_b.to(pix.dtype).reshape(-1).contiguous()
+    out = torch.empty((b, h, w, 3), dtype=pix.dtype, device=pix.device)
+    stream = torch.cuda.current_stream(pix.device).cuda_stream
+    rc = _generic_fn("fwd", pix.dtype)(
+        pix.data_ptr(), w1.data_ptr(), b1.data_ptr(), lns.data_ptr(),
+        lnb.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h,
+        w, cp, c, int(bool(approximate)), stream)
+    _raise_if(rc, "decoder_tail_generic")
+    fused_decoder_tail_generic.launches += 1
+    return out
+
+
+fused_decoder_tail_generic.launches = 0
+
+
+def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
+                                   conv2_w, grad_out, approximate: bool):
+    """K4g, the width-generic backward -> (dpix, dW1, db1, dLN scale,
+    dLN bias, dW2, db2), as :func:`fused_decoder_tail_bwd`.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K4g (its
+    du and dpix / dW1 kernels, counted as one call, passing ``du``
+    through a scratch tensor) or raises. One ``torch.sum`` over the
+    per-CTA fp32 partials finishes the parameter gradients.
+    """
+    if pix.device.type == "cpu":
+        return fused_decoder_tail_bwd_reference(
+            pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out,
+            approximate)
+    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out)
+    b, h, w, c = pix.shape
+    if tuple(grad_out.shape) != (b, h, w, 3):
+        raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}, "
+                         f"expected {(b, h, w, 3)}")
+    cp = generic_channels(c)
+    go = grad_out.to(pix.dtype).contiguous()
+    w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
+                                          conv2_w, cp)
+    w1t = w1.transpose(2, 3).contiguous()  # (tap, o, c): dpix's taps
+    pix = _pad_channels(pix, cp, (3,)).contiguous()
+    du = torch.empty_like(pix)
+    dpix = torch.empty_like(pix)
+    tiles = _generic_tiles_fn()(b, h, w)  # one partial row per CTA
+    dw1_part = torch.empty((tiles, 9 * cp * cp), dtype=torch.float32,
+                           device=pix.device)
+    small_part = torch.empty((tiles, 6 * cp + 3), dtype=torch.float32,
+                             device=pix.device)
+    stream = torch.cuda.current_stream(pix.device).cuda_stream
+    rc = _generic_fn("bwd", pix.dtype)(
+        pix.data_ptr(), go.data_ptr(), w1.data_ptr(), w1t.data_ptr(),
+        b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w2.data_ptr(),
+        du.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
+        small_part.data_ptr(), b, h, w, cp, c, int(bool(approximate)),
+        stream)
+    _raise_if(rc, "decoder_tail_generic")
+    fused_decoder_tail_bwd_generic.launches += 1
+    dw1 = dw1_part.sum(0).reshape(3, 3, cp, cp)[:, :, :c, :c].permute(
+        3, 2, 0, 1)
+    small = small_part.sum(0)
+    dw2 = small[3 * cp:6 * cp].reshape(cp, 3)[:c]
+    return (dpix[..., :c].contiguous(), dw1.to(conv1_w.dtype),
+            small[:c].to(conv1_b.dtype),
+            small[cp:cp + c].to(ln_w.dtype),
+            small[2 * cp:2 * cp + c].to(ln_b.dtype),
+            dw2.t().reshape(conv2_w.shape).to(conv2_w.dtype),
+            small[6 * cp:].to(conv2_w.dtype))
+
+
+fused_decoder_tail_bwd_generic.launches = 0
 
 
 class FusedDecoderTail(torch.autograd.Function):

@@ -1,9 +1,10 @@
 """Attention with a decomposed relative-position bias: forward (K1) and
 backward (K2).
 
-Two hand-written CUDA kernels replace the TPU kernels of
+Hand-written CUDA kernels replace the TPU kernels of
 ``painter_tpu/kernels/flash_relpos.py``: ``csrc/flash_relpos_fwd.cu``
-(``_fwd_impl``) and ``csrc/flash_relpos_bwd.cu`` (``_bwd_impl``). Their
+(``_fwd_impl``) and ``csrc/flash_relpos_bwd.cu`` (``_bwd_impl``) at the
+ViT-L shapes, ``csrc/flash_relpos_generic.cu`` (both) at the rest. Their
 headers state the contracts, what bounds them on an H100 and what their
 designs do about that. The TPU kernels' layout devices (128-lane padding,
 a bias axis folded into the QK contraction, the ones-column in V, the
@@ -22,6 +23,18 @@ exactly ``(q, k, v, rel_h, rel_w, out, lse)``; its backward runs K2.
 Under the ``save_kernel*`` remat policies a checkpointed block keeps K1's
 outputs under the name ``attn_kernel`` (``ops/remat.py``), so the
 backward's recompute never runs K1 again.
+
+Shapes. The domain is the JAX kernel's: ``kh * kw == L`` and
+``hd + min(kh, kw) <= 128`` (``_fold_axis``), plus every shape the ViT-L
+kernels take beyond it. :func:`attention_route` sends a shape, by its
+shape alone, to the ViT-L kernels (``"vitl"``: head_dim 64 within their
+rel-term limits) or to the width-generic kernels K1g / K2g
+(``"generic"``: ``csrc/flash_relpos_generic.cu``, head dims padded with
+zeros to 16, 32, 64 or 128, rel terms of any length), and raises outside
+the domain with the JAX message. Each route counts its own launches:
+``flash_attention_relpos.launches`` / ``flash_attention_relpos_bwd.launches``
+the ViT-L kernels, ``flash_attention_relpos_generic.launches`` /
+``flash_attention_relpos_bwd_generic.launches`` the generic ones.
 """
 from __future__ import annotations
 
@@ -29,11 +42,17 @@ import ctypes
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from painter_tpu_torch.kernels import build
 from painter_tpu_torch.ops.remat import kept
 
-HEAD_DIM = 64
+HEAD_DIM = 64  # the ViT-L kernels' head dim
+# the JAX kernel's domain: hd + min(kh, kw) within one 128-lane MXU tile
+MXU_LANES = 128
+# the head dims K1g / K2g are built for; other head dims are zero-padded
+# to the next
+GENERIC_HEAD_DIMS = (16, 32, 64, 128)
 # the bf16 forward keeps its 128 rows' rel terms in shared memory: 512
 # bytes per (kh + kw) entry beside ~129 KiB of Q and the K / V ring, under
 # the 227 KB a block may use
@@ -50,6 +69,7 @@ _FWD_FUNCS = {torch.bfloat16: "flash_relpos_fwd_bf16",
               torch.float32: "flash_relpos_fwd_f32"}
 _BWD_FUNCS = {torch.bfloat16: "flash_relpos_bwd_bf16",
               torch.float32: "flash_relpos_bwd_f32"}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
@@ -105,24 +125,63 @@ def flash_attention_relpos_bwd_reference(q, k, v, rel_h, rel_w, out, lse,
             ds4.sum(-2).to(dt))
 
 
-def _check(q, k, v, rel_h, rel_w, k_size, max_rel=MAX_REL_ENTRIES,
-           bf16_kw=None, **more):
-    if q.dtype not in _FWD_FUNCS:
-        raise TypeError(f"flash_relpos takes bf16 or fp32, got {q.dtype}")
-    bh, lq, hd = q.shape
+def attention_route(hd: int, k_size: Tuple[int, int], length: int,
+                    dtype: torch.dtype, backward: bool = False) -> str:
+    """The kernel a shape goes to on the card, by its shape alone.
+
+    ``"vitl"``: the ViT-L kernels (K1 / K2) -- head_dim 64 within their
+    rel-term limits (K1: kh + kw <= 190; K2: kh + kw <= 110 and, in bf16,
+    kw in [10, 40]). ``"generic"``: K1g / K2g, every other shape of the
+    JAX kernel's domain ``hd + min(kh, kw) <= 128``. Raises outside it,
+    with the message of the JAX kernel's ``_fold_axis``.
+    """
+    if dtype not in _FWD_FUNCS:
+        raise TypeError(f"flash_relpos takes bf16 or fp32, got {dtype}")
     k_h, k_w = k_size
-    if hd != HEAD_DIM:
-        raise ValueError(f"the kernel is built for head_dim {HEAD_DIM}, "
-                         f"got {hd}")
-    if k_h * k_w != lq:
-        raise ValueError(f"key grid {k_size} does not cover L={lq}")
-    if k_h + k_w > max_rel:
-        raise ValueError(f"key grid {k_size} exceeds the kernel's "
-                         f"{max_rel} rel-term entries")
-    if bf16_kw and q.dtype == torch.bfloat16 and not (
-            bf16_kw[0] <= k_w <= bf16_kw[1]):
-        raise ValueError(f"key grid {k_size}: the bf16 kernel takes a grid "
-                         f"width in [{bf16_kw[0]}, {bf16_kw[1]}]")
+    if k_h * k_w != length:
+        raise ValueError(f"key grid {tuple(k_size)} does not cover "
+                         f"L={length}")
+    if hd == HEAD_DIM:
+        if not backward and k_h + k_w <= MAX_REL_ENTRIES:
+            return "vitl"
+        if backward and k_h + k_w <= BWD_MAX_REL_ENTRIES and (
+                dtype == torch.float32
+                or BWD_BF16_KW[0] <= k_w <= BWD_BF16_KW[1]):
+            return "vitl"
+    if hd + min(k_h, k_w) <= MXU_LANES:
+        return "generic"
+    raise ValueError(
+        f"head_dim {hd} + min rel table {min(k_h, k_w)} exceeds the "
+        f"{MXU_LANES}-lane MXU tile; use the XLA attention path")
+
+
+def generic_head_dim(hd: int) -> int:
+    """The head dim of the K1g / K2g instance that takes ``hd``."""
+    return next(d for d in GENERIC_HEAD_DIMS if d >= hd)
+
+
+def pad_head_dim(d: int, *tensors):
+    """Each (BH, L, hd) tensor zero-padded to head dim ``d``: zero columns
+    add nothing to q.k or dout.v, and the padded columns of out, dq, dk
+    and dv come out zero."""
+    return tuple(t if t.shape[-1] == d else
+                 F.pad(t, (0, d - t.shape[-1])).contiguous()
+                 for t in tensors)
+
+
+def unpad_head_dim(hd: int, *tensors):
+    """The first ``hd`` columns of each (BH, L, d) tensor."""
+    return tuple(t if t.shape[-1] == hd else t[..., :hd].contiguous()
+                 for t in tensors)
+
+
+def _check(q, k, v, rel_h, rel_w, k_size, backward=False, **more):
+    """What the wrappers check before a launch: the type, the grid and
+    the domain (:func:`attention_route`), then every tensor's shape,
+    type, device and layout; returns the route."""
+    bh, lq, hd = q.shape
+    route = attention_route(hd, k_size, lq, q.dtype, backward)
+    k_h, k_w = k_size
     shapes = {"q": (q, (bh, lq, hd), q.dtype),
               "k": (k, (bh, lq, hd), q.dtype),
               "v": (v, (bh, lq, hd), q.dtype),
@@ -143,6 +202,7 @@ def _check(q, k, v, rel_h, rel_w, k_size, max_rel=MAX_REL_ENTRIES,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
+    return route
 
 
 @build.lookup
@@ -158,6 +218,17 @@ def _kernel_fn(dtype: torch.dtype):
 def _bwd_kernel_fn(dtype: torch.dtype):
     fn = getattr(build.library("flash_relpos_bwd"), _BWD_FUNCS[dtype])
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@build.lookup
+def _generic_fn(direction: str, dtype: torch.dtype):
+    fn = getattr(build.library("flash_relpos_generic"),
+                 f"flash_relpos_generic_{direction}_{_DTYPE_NAMES[dtype]}")
+    n_ptrs = 7 if direction == "fwd" else 15
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -185,7 +256,9 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, k_size: Tuple[int, int],
                                                 k_size, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_relpos has no kernel for {q.device}")
-    _check(q, k, v, rel_h, rel_w, k_size)
+    if _check(q, k, v, rel_h, rel_w, k_size) == "generic":
+        return flash_attention_relpos_generic(q, k, v, rel_h, rel_w, k_size,
+                                              scale)
     bh, lq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
@@ -220,8 +293,10 @@ def flash_attention_relpos_bwd(q, k, v, rel_h, rel_w, out, lse, dout,
             q, k, v, rel_h, rel_w, out, lse, dout, k_size, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_relpos has no kernel for {q.device}")
-    _check(q, k, v, rel_h, rel_w, k_size, max_rel=BWD_MAX_REL_ENTRIES,
-           bf16_kw=BWD_BF16_KW, out=out, dout=dout, lse=lse)
+    if _check(q, k, v, rel_h, rel_w, k_size, backward=True, out=out,
+              dout=dout, lse=lse) == "generic":
+        return flash_attention_relpos_bwd_generic(
+            q, k, v, rel_h, rel_w, out, lse, dout, k_size, scale)
     bh, lq, _ = q.shape
     delta = (dout.float() * out.float()).sum(-1)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -243,6 +318,89 @@ def flash_attention_relpos_bwd(q, k, v, rel_h, rel_w, out, lse, dout,
 
 
 flash_attention_relpos_bwd.launches = 0
+
+
+def flash_attention_relpos_generic(q, k, v, rel_h, rel_w,
+                                   k_size: Tuple[int, int], scale: float):
+    """K1g, the width-generic forward -> (out, lse), at any shape of the
+    JAX kernel's domain.
+
+    Arguments as :func:`flash_attention_relpos`, which sends the shapes
+    the ViT-L kernel does not take here. A CPU tensor runs the plain
+    version; a CUDA tensor launches K1g (q, k, v zero-padded to the next
+    built head dim) or raises.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
+                                                k_size, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_relpos has no kernel for {q.device}")
+    _check(q, k, v, rel_h, rel_w, k_size)
+    bh, lq, hd = q.shape
+    d = generic_head_dim(hd)
+    q, k, v = pad_head_dim(d, q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _generic_fn("fwd", q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(),
+        rel_w.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, lq, d,
+        k_size[0], k_size[1], float(scale), stream)
+    if rc:
+        raise RuntimeError(
+            f"flash_relpos_generic fwd launch failed: "
+            f"{_error_string('flash_relpos_generic')(rc).decode()} ({rc})")
+    flash_attention_relpos_generic.launches += 1
+    return unpad_head_dim(hd, out)[0], lse
+
+
+flash_attention_relpos_generic.launches = 0
+
+
+def flash_attention_relpos_bwd_generic(q, k, v, rel_h, rel_w, out, lse,
+                                       dout, k_size: Tuple[int, int],
+                                       scale: float):
+    """K2g, the width-generic backward -> (dq, dk, dv, d_rel_h, d_rel_w).
+
+    Arguments as :func:`flash_attention_relpos_bwd`, which sends the
+    shapes the ViT-L kernel does not take here. A CPU tensor runs the
+    plain version; a CUDA tensor launches K2g (its dq and dk/dv kernels,
+    counted as one launch; q, k, v, dout zero-padded to the next built
+    head dim) or raises. ``delta`` is one torch reduction, as in K2.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_relpos_bwd_reference(
+            q, k, v, rel_h, rel_w, out, lse, dout, k_size, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_relpos has no kernel for {q.device}")
+    _check(q, k, v, rel_h, rel_w, k_size, backward=True, out=out, dout=dout,
+           lse=lse)
+    bh, lq, hd = q.shape
+    delta = (dout.float() * out.float()).sum(-1)
+    d = generic_head_dim(hd)
+    q, k, v, dout = pad_head_dim(d, q, k, v, dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    d_rel_h = torch.empty_like(rel_h)
+    d_rel_w = torch.empty_like(rel_w)
+    # the rows' fp32 rel-bias sums, zeroed and owned by the dq kernel
+    g_h = torch.empty(rel_h.shape, dtype=torch.float32, device=q.device)
+    g_w = torch.empty(rel_w.shape, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _generic_fn("bwd", q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(),
+        rel_w.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d_rel_h.data_ptr(),
+        d_rel_w.data_ptr(), g_h.data_ptr(), g_w.data_ptr(), bh, lq, d,
+        k_size[0], k_size[1], float(scale), stream)
+    if rc:
+        raise RuntimeError(
+            f"flash_relpos_generic bwd launch failed: "
+            f"{_error_string('flash_relpos_generic')(rc).decode()} ({rc})")
+    flash_attention_relpos_bwd_generic.launches += 1
+    return (*unpad_head_dim(hd, dq, dk, dv), d_rel_h, d_rel_w)
+
+
+flash_attention_relpos_bwd_generic.launches = 0
 
 
 class FlashAttentionRelpos(torch.autograd.Function):

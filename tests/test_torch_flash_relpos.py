@@ -203,12 +203,14 @@ def _kernel_args(hd=64, dtype=torch.bfloat16, k_size=(56, 28)):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(hd=16), "head_dim"),
+    (dict(hd=101), "head_dim"),  # 101 + min(56, 28) = 129 > 128
     (dict(k_size=(50, 28)), "does not cover"),
     (dict(dtype=torch.float16), "bf16 or fp32"),
 ])
 def test_kernel_input_checks(change, match):
-    """What the CUDA wrapper refuses before it would launch."""
+    """What the CUDA wrapper refuses before it would launch: its layout
+    checks and its route, which raises outside the JAX kernel's domain
+    (hd + min(kh, kw) <= 128) as ``_fold_axis`` does."""
     with pytest.raises((ValueError, TypeError), match=match):
         fr._check(*_kernel_args(**change))
 

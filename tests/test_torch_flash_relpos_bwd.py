@@ -262,18 +262,26 @@ def test_bwd_kernel_input_checks(change, match):
     kw = {**_bwd_kernel_args(), **change}
     with pytest.raises((ValueError, TypeError), match=match):
         fr._check(kw["q"], kw["k"], kw["v"], kw["rel_h"], kw["rel_w"],
-                  kw["k_size"], max_rel=fr.BWD_MAX_REL_ENTRIES,
-                  out=kw["out"], dout=kw["dout"], lse=kw["lse"])
+                  kw["k_size"], out=kw["out"], dout=kw["dout"],
+                  lse=kw["lse"])
 
 
 def test_bwd_rel_entries_limit():
+    """The ViT-L K2 takes kh + kw <= 110 rel-term entries; past it, a
+    grid of the JAX kernel's domain goes to K2g (80x40, the trainer at
+    --input_size 1280 640), and one outside it raises the JAX message."""
     kw = _bwd_kernel_args()
     fr._check(kw["q"], kw["k"], kw["v"], kw["rel_h"], kw["rel_w"],
-              kw["k_size"], max_rel=fr.BWD_MAX_REL_ENTRIES, out=kw["out"],
-              dout=kw["dout"], lse=kw["lse"])
-    with pytest.raises(ValueError, match="rel-term entries"):
-        fr._check(kw["q"], kw["k"], kw["v"], kw["rel_h"], kw["rel_w"],
-                  kw["k_size"], max_rel=80)
+              kw["k_size"], out=kw["out"], dout=kw["dout"], lse=kw["lse"])
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fr.attention_route(64, (56, 28), 1568, dtype,
+                                  backward=True) == "vitl"
+        assert fr.attention_route(64, (70, 40), 2800, dtype,
+                                  backward=True) == "vitl"  # 110
+        assert fr.attention_route(64, (80, 40), 3200, dtype,
+                                  backward=True) == "generic"  # 120
+        with pytest.raises(ValueError, match="rel table 65 exceeds"):
+            fr.attention_route(64, (65, 65), 65 * 65, dtype, backward=True)
 
 
 @pytest.mark.parametrize("k_size,ok", [
@@ -281,28 +289,27 @@ def test_bwd_rel_entries_limit():
     ((10, 10), True), ((2, 40), True),                      # the limits
     ((14, 7), False), ((2, 42), False)])
 def test_bwd_bf16_grid_width_limit(k_size, ok):
-    """The bf16 backward's one-hot expanders take kw in [10, 40]; the fp32
+    """The bf16 ViT-L backward's one-hot expanders take kw in [10, 40];
+    other widths of the JAX kernel's domain go to K2g. The fp32 ViT-L
     kernel has no such limit."""
     length = k_size[0] * k_size[1]
     for dtype in (torch.bfloat16, torch.float32):
         z = torch.zeros(1, length, 64, dtype=dtype)
-        args = (z, z, z, torch.zeros(1, length, k_size[0], dtype=dtype),
-                torch.zeros(1, length, k_size[1], dtype=dtype), k_size)
-        kwargs = dict(max_rel=fr.BWD_MAX_REL_ENTRIES, bf16_kw=fr.BWD_BF16_KW,
-                      out=z, dout=z, lse=torch.zeros(1, length))
-        if ok or dtype == torch.float32:
-            fr._check(*args, **kwargs)
-        else:
-            with pytest.raises(ValueError, match="grid width"):
-                fr._check(*args, **kwargs)
+        fr._check(z, z, z, torch.zeros(1, length, k_size[0], dtype=dtype),
+                  torch.zeros(1, length, k_size[1], dtype=dtype), k_size,
+                  out=z, dout=z, lse=torch.zeros(1, length))
+        want = "vitl" if ok or dtype == torch.float32 else "generic"
+        assert fr.attention_route(64, k_size, length, dtype,
+                                  backward=True) == want
 
 
 def test_bwd_build_target_and_source_note():
     path = build._target("flash_relpos_bwd")
     assert path.startswith(build.BUILD_DIR) and "flash_relpos_bwd-" in path
     assert set(build.SOURCES) == {"flash_relpos_fwd", "flash_relpos_bwd",
+                                  "flash_relpos_generic",
                                   "decoder_tail_fwd", "decoder_tail_bwd",
-                                  "int8_mlp"}
+                                  "decoder_tail_generic", "int8_mlp"}
     with open("/".join([build.CSRC, "flash_relpos_bwd.cu"])) as f:
         src = f.read()
     assert "painter_tpu/kernels/flash_relpos.py:_bwd_impl" in src

@@ -266,12 +266,20 @@ def test_dp_serving_replicas_on_one_process_match_jax(two_ranks,
 
 
 def test_dp_serving_three_replicas_equal_one_device(two_ranks):
-    """Three replicas (the ragged batch of 3 padded to 3, one row each)
-    paint what one device paints, bit for bit on the CPU."""
+    """Three replicas (the batch of 3, one row each) paint what one device
+    paints for each row alone at batch 1, bit for bit on the CPU. (One
+    device's batch of 3 is no bitwise reference: a CPU GEMM at M = 3 need
+    not round as it does at M = 1.)"""
     inputs, _ = two_ranks
+    sv = inputs["serve"]
     cfg_t = tcfg.tiny_test_config(**SERVE_KW)
     model = port_model(cfg_t, inputs["serve_params"])
     one = te.InContextModel(cfg_t, model, device="cpu")
     three = te.InContextModel(cfg_t, model, mesh=["cpu"] * 3)
-    _assert_serving(_port_serving(three, inputs["serve"]),
-                    _port_serving(one, inputs["serve"]), atol=0)
+    rows = [_port_serving(one, {
+        **sv, "imgs": sv["imgs"][i:i + 1], "tgts": sv["tgts"][i:i + 1],
+        "real": 1, "queries": sv["queries"][i:i + 1],
+        "queries_u8": sv["queries_u8"][i:i + 1]}) for i in range(3)]
+    ref = {key: np.concatenate([r[key] for r in rows])
+           for key in ("queries", "shared", "shared_u8")}
+    _assert_serving(_port_serving(three, sv), ref, atol=0)
