@@ -46,18 +46,26 @@ generated sets with two spawned workers on the native ops, and
 ``python -m painter_tpu_torch.dryrun 2 --procs 2`` on the card. After
 them, the shapes past the ViT-L kernels (none of the paths above launches
 a width-generic kernel): the width-generic kernels K1g / K2g (every head
-dim and key grid of the JAX kernel's domain) and K3g / K4g (every decoder
-width <= 128) against their plain versions at the JAX package's
-kernel-test shapes; tiny_test (head_dim 16, decoder width 8) serving
+dim and key grid of the JAX kernel's domain), K3g / K4g (every decoder
+width but 64, past 128 channels too) and K5g (the fused w8a8 MLP at every
+K, N and row count, bf16 and fp32) against their plain versions at the
+JAX package's kernel-test shapes and at odd, b1-sized and full widths;
+tiny_test (head_dim 16, decoder width 8) serving
 through ``InContextModel`` in bf16 and fp32 against plain attention, also
 windowed (2x2 windows), and training through ``train.main --model
 tiny_test --decoder_impl fused``; an fp32 b1 gradient check of Painter
 ViT-L at 1280x640 (K1 and K2g on the 80x40 grid, K3 / K4 at 1280x640);
 and Painter ViT-L training through ``train.main --input_size 1280 640``
-(bf16, fused tail, b1 x accum 2). Checks that each path went through its
-kernels, and that K2, K3, K4, K5, K2g and K4g give the same bits on two
-runs of the same inputs. Prints its findings, then a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+(bf16, fused tail, b1 x accum 2); tiny_test served quantized (bf16 and
+fp32 with the tanh GELU, quant int8 and int8-fused: K5g) and through
+``seggpt_cli.main --model tiny_test --quant int8-fused``; tiny_test with
+a 160-channel decoder trained through ``train.main`` on the fused tail
+(K3g / K4g past 128 channels); and SegGPT ViT-L 896x448 in fp32 with the
+tanh GELU served at int8 and int8-fused (K5g at full width). Checks that
+each path went through its kernels, and that K2, K3, K4, K5, K2g, K4g and
+K5g give the same bits on two runs of the same inputs. Prints its
+findings, then a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+"device": {...}}``. Any failed check raises, so the
 exit code is not 0 and the last line is not printed. Needs a CUDA device;
 it imports nothing of JAX.
 """
@@ -506,19 +514,25 @@ K5_MAIN_M = 12544
 K5_TOL = 2e-2
 
 
-def k5_case(m, seed, iters):
-    from painter_tpu_torch.kernels import int8_mlp as k5
+def _int8_mlp_layers(k, n, g):
+    """Quantized fc1 (K -> N) and fc2 (N -> K) of N(0, 0.02) weights."""
     from painter_tpu_torch.ops import quant
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    d, n = 1024, 4096
     lins = []
-    for k_in, k_out in ((d, n), (n, d)):
+    for k_in, k_out in ((k, n), (n, k)):
         lin = torch.nn.Linear(k_in, k_out, device="cuda")
         with torch.no_grad():
             lin.weight.normal_(0.0, 0.02, generator=g)
             lin.bias.normal_(0.0, 0.02, generator=g)
         lins.append(quant.QuantizedLinear.from_linear(lin))
-    fc1, fc2 = lins
+    return lins
+
+
+def k5_case(m, seed, iters):
+    from painter_tpu_torch.kernels import int8_mlp as k5
+    from painter_tpu_torch.ops import quant
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, n = 1024, 4096
+    fc1, fc2 = _int8_mlp_layers(d, n, g)
     x = torch.randn(m, d, generator=g, device="cuda").to(torch.bfloat16)
     x[1] = 0  # a zero row
     args = (x, fc1.weight.q, fc1.weight.scale, fc1.bias, fc2.weight.q,
@@ -579,6 +593,98 @@ def phase_k5(label):
               f"{r['bf16_linear_ms']:.4f} bound_ms "
               f"{r['bound_ms']:.4f} ({r['flop']:.4e} int8 ops at 1979 "
               f"TOP/s, {r['bound_by']}) [{label}]")
+    return rows
+
+
+# K5g (csrc/int8_mlp_generic.cu) at (M, K, N, types): the JAX kernel
+# test's K 128 / N 256 at its M 224 and a ragged 37 (zero rows), b1-sized M
+# 1 and 16 (under cuBLASLt's M > 16), tiny_test's M 64 / K 32 / N 128, odd
+# widths K 40 / N 136, a ViT-B-wide 768 / 3072 at the b8 trunk's M 12544,
+# and SegGPT ViT-L's 1024 / 4096 in fp32 at every M of the fp32 tanh-GELU
+# serving path (K5_SHAPES' 12544, 25088, 1568 and 3136; in bf16 that
+# width is K5's)
+K5G_SHAPES = ((224, 128, 256, FP32), (37, 128, 256, FP32),
+              (1, 128, 256, FP32), (16, 128, 256, FP32),
+              (64, 32, 128, FP32), (37, 40, 136, FP32),
+              (12544, 768, 3072, FP32),
+              *((m, 1024, 4096, (torch.float32,))
+                for m in (12544, 25088, 1568, 3136)))
+K5G_MAIN = (12544, 1024, 4096, torch.float32)
+
+
+def k5g_case(m, k, n, dtype, seed, iters):
+    """K5g through ``int8_mlp`` (routed there by shape) against its plain
+    version on one input with zero rows; twice, bitwise."""
+    from painter_tpu_torch.kernels import int8_mlp as k5
+    from painter_tpu_torch.ops import quant
+    check(k5.int8_mlp_route(k, n, dtype) == "generic",
+          f"K {k} N {n} {dtype} is not routed to K5g")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fc1, fc2 = _int8_mlp_layers(k, n, g)
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    if m > 2:
+        x[1] = 0  # a zero row
+    args = (x, fc1.weight.q, fc1.weight.scale, fc1.bias, fc2.weight.q,
+            fc2.weight.scale, fc2.bias)
+    before = (k5.int8_mlp.launches, k5.int8_mlp_generic.launches)
+    out = k5.int8_mlp(*args)
+    again = k5.int8_mlp(*args)
+    after = (k5.int8_mlp.launches, k5.int8_mlp_generic.launches)
+    check(after == (before[0], before[1] + 2),
+          f"K5g M={m} K={k} N={n}: launches {before} -> {after}")
+    ref = k5.int8_mlp_reference(*args)
+    torch.cuda.synchronize()
+    what = f"K5g {dtype} M={m} K={k} N={n}"
+    check(out.dtype == dtype and out.shape == (m, k)
+          and torch.isfinite(out).all().item(), f"{what}: output")
+    check(torch.equal(out, again), f"{what}: two runs differ")
+    del again
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    rel = err / ref.float().abs().max().item()
+    check(rel <= K5_TOL, f"{what}: err / max|plain| {rel} (tol {K5_TOL})")
+    ops = 4 * m * k * n
+    nbytes = 2 * m * k * x.element_size() + 2 * k * n + 4 * 2 * (k + n)
+    t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    # the unfused w8a8 MLP, two torch._int_mm products, where cuBLASLt
+    # takes both shapes; never called by K5g
+    lib_ok = k5.int_mm_takes(m, k, n) and k5.int_mm_takes(m, n, k)
+    return {"m": m, "k": k, "n": n, "dtype": str(dtype), "max_abs_err": err,
+            "rel_err": rel, "frac_differ": (diff > 0).float().mean().item(),
+            "ms": event_ms(lambda: k5.int8_mlp(*args), iters),
+            "plain_ms": event_ms(lambda: k5.int8_mlp_reference(*args),
+                                 max(1, iters // 2)),
+            "library_ms": (event_ms(lambda: quant.mlp(x, fc1, fc2, True,
+                                                      "xla"), iters)
+                           if lib_ok else None),
+            "library_none": None if lib_ok else (
+                "torch._int_mm's cuBLASLt path takes M > 16 and K, N "
+                "multiples of 8"),
+            "flop": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_k5_generic(label):
+    """K5g against its plain version at every shape of K5G_SHAPES, each
+    twice, bitwise; its launches through ``int8_mlp`` only."""
+    rows = []
+    for i, (m, k, n, dtypes) in enumerate(K5G_SHAPES):
+        for dtype in dtypes:
+            big = m * k * n > 1e9
+            r = k5g_case(m, k, n, dtype, seed=700 + i, iters=5 if big else 10)
+            rows.append(r)
+            lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+                   else f"none ({r['library_none']})")
+            print(f"# K5g {r['dtype']} M={m} K={k} N={n}: err/max|plain| "
+                  f"{r['rel_err']:.2e} (values that differ "
+                  f"{r['frac_differ']:.2e}; two runs bitwise equal) "
+                  f"kernel_ms {r['ms']:.4f} ({r['flop'] / r['ms'] / 1e9:.1f} "
+                  f"TOP/s, {100 * r['bound_ms'] / r['ms']:.2f}% of the "
+                  f"bound) plain_ms {r['plain_ms']:.4f} library_ms(unfused "
+                  f"int8 MLP, torch._int_mm) {lib} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['flop']:.4e} int8 ops at 1979 "
+                  f"TOP/s, {r['bytes']:.4e} bytes at 3.35 TB/s: "
+                  f"{r['bound_by']}) [{label}]")
     return rows
 
 
@@ -965,6 +1071,10 @@ def phase_times(model, label, what="bf16", profile=True):
 INT8_REL_FRO = 5e-2
 
 
+def _rel_fro(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
 def phase_int8_serving(model, label):
     """SegGPT ViT-L bf16 served quantized through ``InContextModel``:
     quant "int8" (unfused w8a8 MLPs, K5 never launched) and "int8-fused"
@@ -1001,12 +1111,9 @@ def phase_int8_serving(model, label):
         if quant == "int8-fused":
             k5_launches = launches
 
-    def rel_fro(a, b):
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
     for a, b in (("int8", "bf16"), ("int8-fused", "bf16"),
                  ("int8-fused", "int8")):
-        devs = [rel_fro(x, y) for x, y in zip(outs[a], outs[b])]
+        devs = [_rel_fro(x, y) for x, y in zip(outs[a], outs[b])]
         print(f"# {a} vs {b}: relative Frobenius deviation b8 "
               f"{devs[0]:.4e}, b1 {devs[1]:.4e} (bound {INT8_REL_FRO}) "
               f"[{label}]")
@@ -3223,9 +3330,14 @@ GENERIC_ATTN_SHAPES = ((4, 16, (8, 4)), (4, 16, (12, 6)), (4, 120, (16, 8)),
 GENERIC_MAIN_SHAPE = (16, 64, (80, 40))
 # K3g / K4g (csrc/decoder_tail_generic.cu) at the JAX tests' C = 8 on
 # 16x12 and 12x8, tiny_test's b2 (2, 64, 32, 8) (the main-path shape),
-# and widths that pad (40 on a ragged 37x29; 128)
+# widths that pad (40 on a ragged 37x29; 128), and past 128 channels (the
+# chunked route): 160 and 256 at tiny_test's pixels, 256 at a b1 896x448
+# decoder (tanh only there, for time)
 GENERIC_TAIL_SHAPES = (((2, 16, 12), 8), ((2, 12, 8), 8), ((2, 64, 32), 8),
-                       ((2, 37, 29), 40), ((1, 16, 16), 128))
+                       ((2, 37, 29), 40), ((1, 16, 16), 128),
+                       ((2, 64, 32), 160), ((2, 64, 32), 256),
+                       ((1, 896, 448), 256))
+GENERIC_TAIL_BIG = ((1, 896, 448), 256)
 GENERIC_TAIL_MAIN = ((2, 64, 32), 8)
 TINY = "tiny_test"
 # tiny_test with 2x2 windows in half its blocks: key grids of width 2
@@ -3236,16 +3348,19 @@ PAINTER_1280 = (1280, 640)
 def _generic_counts():
     from painter_tpu_torch.kernels import decoder_head as dh
     from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.kernels import int8_mlp as k5
     return (fr.flash_attention_relpos_generic,
             fr.flash_attention_relpos_bwd_generic,
-            dh.fused_decoder_tail_generic, dh.fused_decoder_tail_bwd_generic)
+            dh.fused_decoder_tail_generic, dh.fused_decoder_tail_bwd_generic,
+            k5.int8_mlp_generic)
 
 
 def _vitl_counts():
     from painter_tpu_torch.kernels import decoder_head as dh
     from painter_tpu_torch.kernels import flash_relpos as fr
+    from painter_tpu_torch.kernels import int8_mlp as k5
     return (fr.flash_attention_relpos, fr.flash_attention_relpos_bwd,
-            dh.fused_decoder_tail, dh.fused_decoder_tail_bwd)
+            dh.fused_decoder_tail, dh.fused_decoder_tail_bwd, k5.int8_mlp)
 
 
 def _zero_counts():
@@ -3254,7 +3369,7 @@ def _zero_counts():
 
 
 def _read_counts():
-    """(K1, K2, K3, K4) and (K1g, K2g, K3g, K4g) launches."""
+    """(K1, K2, K3, K4, K5) and (K1g, K2g, K3g, K4g, K5g) launches."""
     return (tuple(fn.launches for fn in _vitl_counts()),
             tuple(fn.launches for fn in _generic_counts()))
 
@@ -3312,7 +3427,8 @@ def phase_generic_attention(label):
 
 def phase_generic_tail(label):
     """K3g / K4g against their plain versions at GENERIC_TAIL_SHAPES, in
-    bf16 and fp32, both GELU flavours; each twice, bitwise."""
+    bf16 and fp32, both GELU flavours (the tanh one at GENERIC_TAIL_BIG);
+    each twice, bitwise."""
     from painter_tpu_torch.kernels import decoder_head as dh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3320,10 +3436,11 @@ def phase_generic_tail(label):
     for i, (shape, c) in enumerate(GENERIC_TAIL_SHAPES):
         check(dh.decoder_route(c, torch.bfloat16) == "generic",
               f"C={c} is not routed to K3g / K4g")
+        big = (shape, c) == GENERIC_TAIL_BIG
         for dtype in FP32:
-            for approx in (True, False):
-                r = tail_case(shape, dtype, approx, seed=600 + i, iters=5,
-                              c=c, generic=True)
+            for approx in (True,) if big else (True, False):
+                r = tail_case(shape, dtype, approx, seed=600 + i,
+                              iters=2 if big else 5, c=c, generic=True)
                 rows.append(r)
                 k4e = " ".join(f"{n} {e:.1e}"
                                for n, e in r["K4"]["rel_errs"].items())
@@ -3341,7 +3458,40 @@ def phase_generic_tail(label):
                           f"{x['library_ms']:.4f} bound_ms "
                           f"{x['bound_ms']:.4f} ({x['flop']:.4e} FLOP, "
                           f"{x['bound_by']}) [{label}]")
+    for shape, c in TF32_TAIL_SHAPES:
+        shift = _tf32_tail_shift(shape, c)
+        print(f"# plain fp32 tail {shape} C={c}: cuDNN TF32 on moves it "
+              f"{shift:.3e} of max|plain| (K3_TOL "
+              f"{K3_TOL[torch.float32]}; this phase runs with it off) "
+              f"[{label}]")
+        check(shift > K3_TOL[torch.float32],
+              f"TF32 moved the plain tail only {shift} at {shape} C={c}")
     return rows
+
+
+# fp32 tails at which the plain version is read with cuDNN's TF32 on and
+# off: the conv3x3 in TF32 alone moves it past K3_TOL
+TF32_TAIL_SHAPES = (((2, 37, 29), 40), ((2, 64, 32), 160))
+
+
+def _tf32_tail_shift(shape, c):
+    """max |plain(TF32 on) - plain(TF32 off)| / max |plain(TF32 off)| of
+    the fp32 tail's plain version on one seeded input; leaves TF32 off."""
+    from painter_tpu_torch.kernels import decoder_head as dh
+    g = torch.Generator(device="cuda").manual_seed(650)
+    pix = torch.randn(*shape, c, generator=g, device="cuda")
+    params = (torch.randn(c, c, 3, 3, generator=g, device="cuda")
+              * (9 * c) ** -0.5,
+              *(torch.randn(c, generator=g, device="cuda") * 0.1 + s
+                for s in (0.0, 1.0, 0.0)),
+              torch.randn(3, c, 1, 1, generator=g, device="cuda") * c ** -0.5,
+              torch.randn(3, generator=g, device="cuda") * 0.1)
+    outs = []
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        outs.append(dh.fused_decoder_tail_reference(pix, *params, True))
+    return ((outs[0] - outs[1]).abs().max()
+            / outs[1].abs().max()).item()
 
 
 def phase_tiny_serving(label):
@@ -3373,11 +3523,11 @@ def phase_tiny_serving(label):
                 vitl, gen = _read_counts()
                 if impl == "kernel":
                     total += gen[0]
-                    check(gen[0] == 2 * cfg.depth and vitl == (0,) * 4
-                          and gen[1:] == (0, 0, 0),
+                    check(gen[0] == 2 * cfg.depth and vitl == (0,) * 5
+                          and gen[1:] == (0,) * 4,
                           f"tiny {name} {dtype}: launches {vitl} {gen}")
                 else:
-                    check(gen == (0,) * 4 and vitl == (0,) * 4,
+                    check(gen == (0,) * 5 and vitl == (0,) * 5,
                           f"plain attention launched {vitl} {gen}")
             tol = FWD_BF16_TOL if dtype == "bfloat16" else FWD_FP32_TOL
             errs = []
@@ -3468,8 +3618,8 @@ def _train_main(label, what, model, input_size, dtype, batch, accum,
     print(f"# {what}: {updates} updates (b{batch} x accum {accum}), losses "
           f"{[round(x, 5) for x in losses]}, val loss "
           f"{stats['val_loss']:.5f}, parameter tensors changed per update "
-          f"{changed} of {n_params}; launches K1-K4 {counts[0]}, "
-          f"K1g-K4g {counts[1]} [{label}]")
+          f"{changed} of {n_params}; launches K1-K5 {counts[0]}, "
+          f"K1g-K5g {counts[1]} [{label}]")
     depth = result["model"].cfg.depth
     del result
     tmp.cleanup()
@@ -3490,8 +3640,8 @@ def phase_tiny_train(label):
         label, "train.main --model tiny_test", TINY, (64, 32), "bfloat16",
         2, accum, updates, val)
     micro = updates * accum
-    check(counts[0] == (0,) * 4 and counts[1] == (
-        depth * (micro + val), depth * micro, micro, micro),
+    check(counts[0] == (0,) * 5 and counts[1] == (
+        depth * (micro + val), depth * micro, micro, micro, 0),
         f"tiny_test training launched {counts}")
     cfg = configs.get_config(TINY, dtype="bfloat16", **TINY_WINDOWED)
     model = _seeded_model(cfg, 13).train()
@@ -3510,12 +3660,213 @@ def phase_tiny_train(label):
     print(f"# tiny_test windowed (2x2 windows in blocks "
           f"{TINY_WINDOWED['window_block_indexes']}), one fused-tail "
           f"micro-step: loss {loss:.5f}, {changed} parameter tensors "
-          f"changed, launches K1-K4 {win[0]}, K1g-K4g {win[1]} [{label}]")
+          f"changed, launches K1-K5 {win[0]}, K1g-K5g {win[1]} [{label}]")
     check(np.isfinite(loss) and changed > 0, f"windowed step {loss}")
-    check(win[0] == (0,) * 4 and win[1] == (depth, depth, 1, 1),
+    check(win[0] == (0,) * 5 and win[1] == (depth, depth, 1, 1, 0),
           f"windowed tiny_test step launched {win}")
-    gen = tuple(a + b for a, b in zip(counts[1], win[1]))
-    return gen
+    return tuple(a + b for a, b in zip(counts[1][:4], win[1][:4]))
+
+
+# tiny_test's quantized configs: bf16 (tanh GELU), fp32 with the tanh GELU
+# (K5g), fp32 with the default exact GELU (the unfused path, as JAX)
+TINY_INT8_CONFIGS = (("bfloat16", "auto"), ("float32", "tanh"),
+                     ("float32", "auto"))
+# int8-fused vs int8 at tiny_test, relative Frobenius, per config. bf16:
+# the unfused path rounds the hidden activation through bf16 and K5g keeps
+# it in fp32, ~8e-4 apart; fp32 tanh: the same arithmetic but for where
+# each rounds, ~5e-8; fp32 exact GELU: both run the unfused path, equal
+TINY_FUSED_VS_INT8 = {("bfloat16", "auto"): 5e-3,
+                      ("float32", "tanh"): 1e-6,
+                      ("float32", "auto"): 0.0}
+
+
+def phase_tiny_int8_serving(label):
+    """tiny_test (K 32, N 128: K5g's shapes) served through
+    ``InContextModel`` at quant "int8" and "int8-fused" in each of
+    TINY_INT8_CONFIGS, through run_queries, run_queries_shared and
+    run_one_image, each against the unquantized output at INT8_REL_FRO
+    and int8-fused against int8 at TINY_FUSED_VS_INT8; K5g launched once
+    per block per fused tanh-GELU forward, K5 never. Returns K5g's
+    launches."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import engine
+    total = 0
+    for dtype, gelu in TINY_INT8_CONFIGS:
+        cfg = configs.get_config(TINY, dtype=dtype, gelu=gelu)
+        model = _seeded_model(cfg, 41)
+        res = cfg.img_size[1]
+        rng = np.random.RandomState(42)
+        img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+        queries = [rng.rand(res, res, 3) for _ in range(3)]
+        imgs, tgts = engine.build_query_batch(queries, img2, tgt2)
+        img1, tgt1 = engine.build_prompt_batch(queries[0], [(img2, tgt2)])
+
+        def serve(eng):
+            return (eng.run_queries(imgs, tgts, real_count=3),
+                    eng.run_queries_shared(np.stack(queries), img2, tgt2),
+                    eng.run_one_image(img1, tgt1))
+
+        ref = serve(engine.InContextModel(cfg, model, device="cuda"))
+        by_quant = {}
+        for quant in ("int8", "int8-fused"):
+            eng = engine.InContextModel(cfg, model, device="cuda",
+                                        quant=quant)
+            _zero_counts()
+            outs = serve(eng)
+            k5n, k5g = (c[4] for c in _read_counts())
+            fused = quant == "int8-fused" and cfg.gelu_approximate
+            want = 3 * cfg.depth if fused else 0
+            devs = [_rel_fro(o, r) for o, r in zip(outs, ref)]
+            print(f"# tiny_test {dtype} gelu={gelu} --quant {quant}: K5g "
+                  f"launches {k5g} (expected {want}), K5 {k5n}; relative "
+                  f"Frobenius vs unquantized run_queries / "
+                  f"run_queries_shared / run_one_image "
+                  f"{' / '.join(f'{d:.4e}' for d in devs)} (bound "
+                  f"{INT8_REL_FRO}) [{label}]")
+            check(k5g == want and k5n == 0,
+                  f"tiny {dtype} {gelu} {quant}: K5 {k5n}, K5g {k5g}")
+            for o, r in zip(outs, ref):
+                check(o.shape == r.shape and np.isfinite(o).all(),
+                      f"tiny {dtype} {gelu} {quant}: {o.shape}")
+            check(max(devs) <= INT8_REL_FRO,
+                  f"tiny {dtype} {gelu} {quant} deviates {devs}")
+            by_quant[quant] = outs
+            total += k5g
+        devs = [_rel_fro(a, b) for a, b in zip(by_quant["int8-fused"],
+                                               by_quant["int8"])]
+        bound = TINY_FUSED_VS_INT8[dtype, gelu]
+        print(f"# tiny_test {dtype} gelu={gelu} int8-fused vs int8: relative "
+              f"Frobenius run_queries / run_queries_shared / run_one_image "
+              f"{' / '.join(f'{d:.4e}' for d in devs)} (bound {bound}) "
+              f"[{label}]")
+        check(max(devs) <= bound,
+              f"tiny {dtype} {gelu} int8-fused deviates {devs} from int8")
+        del model
+    return total
+
+
+def phase_cli_tiny(label):
+    """``seggpt_cli.main(["--model", "tiny_test", "--quant",
+    "int8-fused", ...])`` on the card with no checkpoint (bf16, random
+    weights from seed 0): K5g once per block, K5 never. Returns K5g's
+    launches."""
+    import os
+    import tempfile
+    from PIL import Image
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import seggpt_cli
+    depth = configs.get_config(TINY).depth
+    with tempfile.TemporaryDirectory() as root:
+        query, p1, t1 = _write_pngs(root, ["query", "p1", "t1"], (48, 80),
+                                    seed=43)
+        out_dir = os.path.join(root, "out")
+        _zero_counts()
+        seggpt_cli.main(["--model", TINY, "--input_image", query,
+                         "--prompt_image", p1, "--prompt_target", t1,
+                         "--output_dir", out_dir, "--quant", "int8-fused"])
+        k5n, k5g = (c[4] for c in _read_counts())
+        out = os.path.join(out_dir, "output_query.png")
+        check(os.path.exists(out), f"CLI tiny_test wrote no {out}")
+        png = Image.open(out)
+        print(f"# seggpt_cli --model tiny_test --quant int8-fused: K5g "
+              f"launches {k5g} (expected {depth}), K5 {k5n}; "
+              f"output_query.png {png.size} {png.mode} [{label}]")
+        check(png.size == (80, 48) and png.mode == "RGB",
+              f"CLI tiny_test output {png.size} {png.mode}")
+        check(k5g == depth and k5n == 0, f"CLI tiny_test: K5 {k5n}, K5g "
+              f"{k5g}")
+    return k5g
+
+
+# a decoder past 128 channels (K3g / K4g's chunked route)
+WIDE_DECODER = 160
+
+
+def phase_tiny_wide_decoder(label):
+    """tiny_test with ``decoder_embed_dim`` 160 trains through
+    ``train.main --model tiny_test --decoder_impl fused`` (the preset
+    widened for the call): K3g / K4g once per micro-batch, no ViT-L
+    kernel; each loss finite, each update changes the parameters.
+    Returns (K3g, K4g) launches."""
+    import functools
+    from painter_tpu_torch import configs
+    updates, accum, val = 2, 2, 2
+    real = configs.PRESETS[TINY]
+    configs.PRESETS[TINY] = functools.partial(
+        real, decoder_embed_dim=WIDE_DECODER)
+    try:
+        counts, _, _, depth = _train_main(
+            label, f"train.main --model tiny_test (decoder_embed_dim "
+            f"{WIDE_DECODER})", TINY, (64, 32), "bfloat16", 2, accum,
+            updates, val)
+    finally:
+        configs.PRESETS[TINY] = real
+    micro = updates * accum
+    check(counts[0] == (0,) * 5 and counts[1] == (
+        depth * (micro + val), depth * micro, micro, micro, 0),
+        f"tiny_test (decoder {WIDE_DECODER}) training launched {counts}")
+    return counts[1][2], counts[1][3]
+
+
+def phase_int8_fp32_serving(label):
+    """SegGPT ViT-L 896x448 in fp32 with the tanh GELU (``dtype=
+    "float32", gelu="tanh"``), full width and depth, served through
+    ``InContextModel`` unquantized, at quant "int8" and "int8-fused": a
+    b8 run_queries_shared and a b1 run_one_image each. int8-fused runs
+    K5g (K 1024, N 4096, M up to 25088 in fp32) once per block per
+    forward, K5 never; each quantized output within INT8_REL_FRO of the
+    fp32 one, int8-fused within K5_TOL of int8. Returns (K5g launches,
+    seconds of a b8 call per mode)."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config("seggpt_vit_large_patch16_input896x448",
+                             dtype="float32", gelu="tanh")
+    model = _seeded_model(cfg, 51)
+    res = cfg.img_size[1]
+    rng = np.random.RandomState(52)
+    img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+    queries = (rng.rand(8, res, res, 3) * 255).astype(np.uint8)
+    img1, tgt1 = engine.build_prompt_batch(rng.rand(res, res, 3),
+                                           [(img2, tgt2)])
+    outs, b8_s = {}, {}
+    k5g_total = 0
+    for quant in ("none", "int8", "int8-fused"):
+        eng = engine.InContextModel(cfg, model, device="cuda", quant=quant)
+        _zero_counts()
+        outs[quant] = (eng.run_queries_shared(queries, img2, tgt2),
+                       eng.run_one_image(img1, tgt1))
+        k5n, k5g = (c[4] for c in _read_counts())
+        want = 2 * cfg.depth if quant == "int8-fused" else 0
+        print(f"# SegGPT ViT-L fp32 tanh --quant {quant}: K5g launches "
+              f"{k5g} over a b8 run_queries_shared and a b1 run_one_image "
+              f"(expected {want}), K5 {k5n}")
+        check(k5g == want and k5n == 0,
+              f"fp32 ViT-L {quant}: K5 {k5n}, K5g {k5g}")
+        k5g_total += k5g
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_queries_shared(queries, img2, tgt2)
+        b8_s[quant] = time.perf_counter() - t0
+        del eng
+    for a, b, bound in (("int8", "none", INT8_REL_FRO),
+                        ("int8-fused", "none", INT8_REL_FRO),
+                        ("int8-fused", "int8", K5_TOL)):
+        devs = [_rel_fro(x, y) for x, y in zip(outs[a], outs[b])]
+        print(f"# SegGPT ViT-L fp32 tanh {a} vs {b}: relative Frobenius "
+              f"b8 {devs[0]:.4e}, b1 {devs[1]:.4e} (bound {bound}) "
+              f"[{label}]")
+        for o in outs[a]:
+            check(np.isfinite(o).all(), f"fp32 {a}: non-finite values")
+        check(max(devs) <= bound, f"fp32 {a} deviates {devs} from {b}")
+    print("# SegGPT ViT-L fp32 tanh b8 run_queries_shared (one call after "
+          "the checked one, host clock): "
+          + ", ".join(f"{q} {s:.3f} s ({8 / s:.3f} pairs/s)"
+                      for q, s in b8_s.items()) + f" [{label}]")
+    del model
+    torch.cuda.empty_cache()
+    return k5g_total, b8_s
 
 
 def phase_grad_check_1280(label):
@@ -3536,9 +3887,9 @@ def phase_grad_check_1280(label):
     _grad_pair(model, batch, "K3/K4 vs stock tail at 1280x640", label, True,
                ("kernel", "fused"), ("kernel", "xla"))
     vitl, gen = _read_counts()
-    print(f"# grad check 1280x640: launches K1-K4 {vitl}, K1g-K4g {gen}")
-    check(vitl[1] == 0 and gen == (0, 3 * cfg.depth, 0, 0)
-          and vitl[2:] == (1, 1),
+    print(f"# grad check 1280x640: launches K1-K5 {vitl}, K1g-K5g {gen}")
+    check(vitl[1] == 0 and gen == (0, 3 * cfg.depth, 0, 0, 0)
+          and vitl[2:] == (1, 1, 0),
           f"1280x640 gradient check launched {vitl} {gen}")
     del model
     torch.cuda.empty_cache()
@@ -3556,8 +3907,8 @@ def phase_train_1280(label):
         label, "train.main Painter ViT-L --input_size 1280 640", PAINTER,
         PAINTER_1280, "bfloat16", 1, accum, updates, val)
     micro = updates * accum
-    check(counts[0] == (depth * (micro + val), 0, micro, micro)
-          and counts[1] == (0, depth * micro, 0, 0),
+    check(counts[0] == (depth * (micro + val), 0, micro, micro, 0)
+          and counts[1] == (0, depth * micro, 0, 0, 0),
           f"ViT-L 1280x640 training launched {counts}")
     print(f"# ViT-L 1280x640 training drive: {time.perf_counter() - t0:.1f}"
           f" s with model build, data workers and validation")
@@ -3633,7 +3984,9 @@ def main():
     k5_rows = timed("K5 vs plain", phase_k5, label)
     gen_attn_rows = timed("K1g/K2g vs plain", phase_generic_attention, label)
     gen_tail_rows = timed("K3g/K4g vs plain", phase_generic_tail, label)
-    _zero_counts()  # every ViT-L 896x448 path below launches no K1g-K4g
+    k5g_rows = timed("K5g vs plain", phase_k5_generic, label)
+    # every ViT-L 896x448 path below launches no K1g-K4g and no K5g
+    _zero_counts()
     model, serve_k1 = timed("serving drive", phase_model, label)
     tools_k1, tools_k2 = timed("tools", phase_tools, model, label)
     bf16_times = timed("serving times", phase_times, model, label)
@@ -3667,12 +4020,19 @@ def main():
     fe_k1, fe_k2, fe_k3, fe_k4 = timed("data front end",
                                        phase_data_front_end, label)
     vitl_gen = _read_counts()[1]
-    print(f"# K1g-K4g launches on every ViT-L 896x448 path above: "
+    print(f"# K1g-K4g and K5g launches on every ViT-L 896x448 path above: "
           f"{vitl_gen}")
-    check(vitl_gen == (0,) * 4,
+    check(vitl_gen == (0,) * 5,
           f"a ViT-L 896x448 path launched a generic kernel: {vitl_gen}")
     tiny_k1g = timed("tiny_test serving", phase_tiny_serving, label)
     tiny_gen = timed("tiny_test training", phase_tiny_train, label)
+    tiny_k5g = timed("tiny_test int8 serving", phase_tiny_int8_serving,
+                     label)
+    cli_tiny_k5g = timed("CLI tiny_test int8-fused", phase_cli_tiny, label)
+    wide_k3g, wide_k4g = timed("tiny_test wide decoder training",
+                               phase_tiny_wide_decoder, label)
+    fp32_k5g, _ = timed("SegGPT ViT-L fp32 int8 serving",
+                        phase_int8_fp32_serving, label)
     timed("gradient check 1280x640", phase_grad_check_1280, label)
     t1280 = timed("training drive 1280x640", phase_train_1280, label)
     timed("training times 1280x640", train_1280_times, label)
@@ -3697,10 +4057,17 @@ def main():
           f"path {serve_k5}, CLI --quant int8-fused {cli_k5}, eval "
           f"--quant int8-fused {eval_k5}; ViT-L 1280x640 training (K1, "
           f"K2g, K3, K4) {t1280}; tiny_test: K1g serving {tiny_k1g}, "
-          f"training (K1g, K2g, K3g, K4g) {tiny_gen}")
+          f"training (K1g, K2g, K3g, K4g) {tiny_gen}, decoder "
+          f"{WIDE_DECODER} training (K3g, K4g) ({wide_k3g}, {wide_k4g}); "
+          f"K5g launches: SegGPT ViT-L fp32 int8-fused serving {fp32_k5g}, "
+          f"tiny_test int8-fused serving {tiny_k5g}, CLI tiny_test "
+          f"{cli_tiny_k5g}")
     tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
                 TAIL_MAIN_SHAPE and r["K3"]["dtype"] == str(torch.bfloat16))
     k5_row = next(r for r in k5_rows if r["m"] == K5_MAIN_M)
+    k5g_row = next(r for r in k5g_rows if (
+        r["m"], r["k"], r["n"], r["dtype"]) == (*K5G_MAIN[:3],
+                                                str(K5G_MAIN[3])))
 
     def gen_row(kind, bh, d, grid):
         return next(r for k, r in gen_attn_rows if k == kind
@@ -3736,10 +4103,15 @@ def main():
                       "flash_relpos_generic"),
         _kernel_entry("decoder_tail_generic_fwd",
                       "painter_tpu/kernels/decoder_head.py:180",
-                      tiny_gen[2], gen_tail["K3"], "decoder_tail_generic"),
+                      tiny_gen[2] + wide_k3g, gen_tail["K3"],
+                      "decoder_tail_generic"),
         _kernel_entry("decoder_tail_generic_bwd",
                       "painter_tpu/kernels/decoder_head.py:304",
-                      tiny_gen[3], gen_tail["K4"], "decoder_tail_generic")]
+                      tiny_gen[3] + wide_k4g, gen_tail["K4"],
+                      "decoder_tail_generic"),
+        _kernel_entry("int8_mlp_generic",
+                      "painter_tpu/kernels/int8_mlp.py:87",
+                      fp32_k5g + tiny_k5g + cli_tiny_k5g, k5g_row)]
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,9 +35,12 @@ conv2 (3, C, 1, 1) (``decoder_pred.3``); pixels and outputs NHWC.
 Widths. :func:`decoder_route` sends a width, by its shape alone, to the
 kernels built for the presets' C = 64 (``"vitl"``: any H and W) or to
 the width-generic kernels K3g / K4g (``"generic"``:
-``csrc/decoder_tail_generic.cu``, every C <= 128, zero-padded to 8, 16,
-32, 64 or 128 channels with LayerNorm over the real C). Each route counts
-its own launches: ``fused_decoder_tail.launches`` /
+``csrc/decoder_tail_generic.cu``, every other C >= 1, as the JAX kernel
+takes any C). Up to 128 channels they are zero-padded to 8, 16, 32, 64
+or 128; past that to a multiple of 8, where the kernels stage the input
+channels in chunks and keep the pre-LayerNorm u in an fp32 scratch
+(:func:`generic_channels`); LayerNorm runs over the real C. Each route
+counts its own launches: ``fused_decoder_tail.launches`` /
 ``fused_decoder_tail_bwd.launches`` the C = 64 kernels,
 ``fused_decoder_tail_generic.launches`` /
 ``fused_decoder_tail_bwd_generic.launches`` the generic ones.
@@ -54,14 +57,21 @@ from painter_tpu_torch.kernels import build
 
 LN_EPS = 1e-6
 CHANNELS = 64  # the ViT-L kernels are built for the presets' decoder width
-# the widths K3g / K4g are built for; other widths are zero-padded to the
-# next
+# the widths K3g / K4g are built for up to 128 channels; other widths up
+# to 128 are zero-padded to the next, wider ones to a multiple of
+# WIDE_STEP (the chunked route of csrc/decoder_tail_generic.cu)
 GENERIC_CHANNELS = (8, 16, 32, 64, 128)
+WIDE_STEP = 8
+# pixels per partial row of the chunked route's dW1 (at most WIDE_SLICES
+# rows)
+WIDE_SLICE_PIXELS = 4096
+WIDE_SLICES = 64
 # K3's and K4's device kernels, as the profiler names them
 KERNEL_NAMES = ("strip_kernel", "dw1_kernel", "decoder_tail_fwd_kernel",
                 "decoder_tail_bwd_kernel")
 # K3g's and K4g's device kernels (templates), as the profiler names them
-GENERIC_KERNEL_NAMES = ("fwd_kernel<", "du_kernel<", "dpix_kernel<")
+GENERIC_KERNEL_NAMES = ("fwd_kernel<", "du_kernel<", "dpix_kernel<",
+                        "dw1_kernel<")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -179,20 +189,27 @@ def _raise_if(rc: int, name: str):
 def decoder_route(c: int, dtype: torch.dtype) -> str:
     """The kernel a decoder width goes to on the card, by its shape alone:
     ``"vitl"`` (K3 / K4, C = 64) or ``"generic"`` (K3g / K4g, every other
-    C <= 128). Raises on other types and on wider tails."""
+    C >= 1). Raises on other types and on C < 1."""
     if dtype not in _DTYPES:
         raise TypeError(f"decoder_tail takes bf16 or fp32, got {dtype}")
     if c == CHANNELS:
         return "vitl"
-    if 1 <= c <= GENERIC_CHANNELS[-1]:
+    if c >= 1:
         return "generic"
-    raise ValueError(f"decoder width {c}: the kernels take C <= "
-                     f"{GENERIC_CHANNELS[-1]}")
+    raise ValueError(f"decoder width {c}: the kernels take C >= 1")
 
 
 def generic_channels(c: int) -> int:
-    """The width of the K3g / K4g instance that takes ``c`` channels."""
-    return next(n for n in GENERIC_CHANNELS if n >= c)
+    """The width K3g / K4g run ``c`` channels at: the next built width up
+    to 128, past that ``c`` rounded up to a multiple of ``WIDE_STEP``."""
+    if c <= GENERIC_CHANNELS[-1]:
+        return next(n for n in GENERIC_CHANNELS if n >= c)
+    return -(-c // WIDE_STEP) * WIDE_STEP
+
+
+def wide_slices(n_pixels: int) -> int:
+    """Rows of the chunked route's dW1 partial for ``n_pixels`` pixels."""
+    return max(1, min(WIDE_SLICES, -(-n_pixels // WIDE_SLICE_PIXELS)))
 
 
 def _check_pix(pix, *more) -> str:
@@ -360,11 +377,13 @@ def _generic_tiles_fn():
 
 
 @build.lookup
-def _generic_fn(direction: str, dtype: torch.dtype):
+def _generic_fn(direction: str, dtype: torch.dtype, wide: bool = False):
+    route = "_wide" if wide else ""
     fn = getattr(build.library("decoder_tail_generic"),
-                 f"decoder_tail_generic_{direction}_{_DTYPES[dtype]}")
-    n_ptrs = 8 if direction == "fwd" else 12
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
+                 f"decoder_tail_generic{route}_{direction}_{_DTYPES[dtype]}")
+    n_ptrs = (8 if direction == "fwd" else 12) + int(wide)
+    n_ints = 6 + int(wide and direction == "bwd")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -376,8 +395,9 @@ def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
 
     Arguments as :func:`fused_decoder_tail`, which sends the widths the
     C = 64 kernel does not take here. A CPU tensor runs the plain
-    version; a CUDA tensor launches K3g (channels zero-padded to the next
-    built width) or raises.
+    version; a CUDA tensor launches K3g (channels zero-padded to
+    :func:`generic_channels`; past 128 with an fp32 (B, H, W, CP) scratch
+    for u) or raises.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
@@ -386,16 +406,20 @@ def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
     _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b)
     b, h, w, c = pix.shape
     cp = generic_channels(c)
+    wide = cp > GENERIC_CHANNELS[-1]
     w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
                                           conv2_w, cp)
     pix = _pad_channels(pix, cp, (3,)).contiguous()
     b2 = conv2_b.to(pix.dtype).reshape(-1).contiguous()
     out = torch.empty((b, h, w, 3), dtype=pix.dtype, device=pix.device)
+    u = (torch.empty((b, h, w, cp), dtype=torch.float32, device=pix.device)
+         if wide else None)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _generic_fn("fwd", pix.dtype)(
+    rc = _generic_fn("fwd", pix.dtype, wide)(
         pix.data_ptr(), w1.data_ptr(), b1.data_ptr(), lns.data_ptr(),
-        lnb.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h,
-        w, cp, c, int(bool(approximate)), stream)
+        lnb.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        *([u.data_ptr()] if wide else []), b, h, w, cp, c,
+        int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_generic")
     fused_decoder_tail_generic.launches += 1
     return out
@@ -411,8 +435,10 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
 
     A CPU tensor runs the plain version; a CUDA tensor launches K4g (its
     du and dpix / dW1 kernels, counted as one call, passing ``du``
-    through a scratch tensor) or raises. One ``torch.sum`` over the
-    per-CTA fp32 partials finishes the parameter gradients.
+    through a scratch tensor; past 128 channels du, dpix and dW1 are three
+    launches with an fp32 scratch for u and dpix's sums) or raises. One
+    ``torch.sum`` over the fp32 partials (per CTA; dW1 per pixel slice
+    past 128 channels) finishes the parameter gradients.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_bwd_reference(
@@ -424,6 +450,7 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
         raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}, "
                          f"expected {(b, h, w, 3)}")
     cp = generic_channels(c)
+    wide = cp > GENERIC_CHANNELS[-1]
     go = grad_out.to(pix.dtype).contiguous()
     w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
                                           conv2_w, cp)
@@ -431,18 +458,27 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
     pix = _pad_channels(pix, cp, (3,)).contiguous()
     du = torch.empty_like(pix)
     dpix = torch.empty_like(pix)
-    tiles = _generic_tiles_fn()(b, h, w)  # one partial row per CTA
-    dw1_part = torch.empty((tiles, 9 * cp * cp), dtype=torch.float32,
+    tiles = _generic_tiles_fn()(b, h, w)  # one small partial row per CTA
+    # dW1: one partial row per CTA, or per pixel slice past 128 channels
+    slices = wide_slices(b * h * w) if wide else tiles
+    dw1_part = torch.empty((slices, 9 * cp * cp), dtype=torch.float32,
                            device=pix.device)
     small_part = torch.empty((tiles, 6 * cp + 3), dtype=torch.float32,
                              device=pix.device)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _generic_fn("bwd", pix.dtype)(
-        pix.data_ptr(), go.data_ptr(), w1.data_ptr(), w1t.data_ptr(),
-        b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w2.data_ptr(),
-        du.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
-        small_part.data_ptr(), b, h, w, cp, c, int(bool(approximate)),
-        stream)
+    ptrs = [pix.data_ptr(), go.data_ptr(), w1.data_ptr(), w1t.data_ptr(),
+            b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w2.data_ptr()]
+    if wide:
+        u = torch.empty(pix.shape, dtype=torch.float32, device=pix.device)
+        rc = _generic_fn("bwd", pix.dtype, True)(
+            *ptrs, u.data_ptr(), du.data_ptr(), dpix.data_ptr(),
+            dw1_part.data_ptr(), small_part.data_ptr(), b, h, w, cp, c,
+            slices, int(bool(approximate)), stream)
+    else:
+        rc = _generic_fn("bwd", pix.dtype)(
+            *ptrs, du.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
+            small_part.data_ptr(), b, h, w, cp, c, int(bool(approximate)),
+            stream)
     _raise_if(rc, "decoder_tail_generic")
     fused_decoder_tail_bwd_generic.launches += 1
     dw1 = dw1_part.sum(0).reshape(3, 3, cp, cp)[:, :, :c, :c].permute(

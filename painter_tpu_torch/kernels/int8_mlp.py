@@ -1,21 +1,35 @@
-"""The fused w8a8 transformer MLP (K5).
+"""The fused w8a8 transformer MLP (K5, and K5g at the other widths).
 
-A hand-written CUDA kernel, ``csrc/int8_mlp.cu``, replaces the TPU kernel
-of ``painter_tpu/kernels/int8_mlp.py`` (``_int8_mlp_2d``): per-row int8
+Hand-written CUDA kernels replace the TPU kernel of
+``painter_tpu/kernels/int8_mlp.py`` (``_int8_mlp_2d``): per-row int8
 quantization of x, the int8 fc1 product, dequantization + bias, tanh
 GELU, per-row requantization from the fp32 hidden activation, the int8
-fc2 product, dequantization + bias; the fp32 hidden activation stays on
-the SM (its row maxima are exchanged across a thread-block cluster), and
-only its int8 codes pass to fc2 through a scratch tensor. Its header
-states the contract, the bound on an H100 and what the design does about
+fc2 product, dequantization + bias. ``csrc/int8_mlp.cu`` (K5) serves the
+ViT-L shapes: the fp32 hidden activation stays on the SM (its row maxima
+are exchanged across a thread-block cluster), and only its int8 codes
+pass to fc2 through a scratch tensor. ``csrc/int8_mlp_generic.cu`` (K5g)
+serves every other shape and fp32 x: four launches (quantize, fc1 with
+the GELU into an fp32 hidden scratch, requantize, fc2). Their headers
+state the contracts, the bound on an H100 and what the designs do about
 it. The TPU kernel's row-block choice (``default_block_m``) is a layout
 device and is not carried over.
 
-:func:`int8_mlp` dispatches on the device: a CPU tensor runs
-:func:`int8_mlp_reference`, a CUDA tensor launches the kernel or raises;
-``int8_mlp.launches`` counts its launches. Weights are the torch (out, in)
-layout: fc1 int8 (N, K), fc2 int8 (K, N), fp32 per-out-channel scales and
-biases.
+Routes. :func:`int8_mlp_route` picks the kernel by shape and type alone:
+``"vitl"`` (K5) for bf16 x with N = 4096 hidden and K a multiple of 128,
+``"generic"`` (K5g) for every other K >= 1 and N >= 1, in bf16 or fp32 --
+the shapes and types the JAX kernel takes (x in bf16 or fp32, output in
+x's type). :func:`int8_mlp` dispatches on the device: a CPU tensor runs
+:func:`int8_mlp_reference`, a CUDA tensor launches the routed kernel or
+raises. ``int8_mlp.launches`` counts K5's launches,
+``int8_mlp_generic.launches`` K5g's. Weights are the torch (out, in)
+layout: fc1 int8 (N, K), fc2 int8 (K, N), fp32 per-out-channel scales
+and biases.
+
+:func:`int8_matmul`, the exact int8 product of the plain versions and of
+the unfused int8 linears, routes by shape too: ``torch._int_mm`` where
+its cuBLASLt path takes the shape on the card (M > 16, K and N multiples
+of 8) and on the CPU, else an exact product through float64 on the card
+(:func:`int8_matmul_f64`), as XLA's int8 dot takes any shape.
 """
 from __future__ import annotations
 
@@ -26,24 +40,37 @@ import torch
 
 from painter_tpu_torch.kernels import build
 
-# the hidden width the kernel is built for (a cluster of 8 CTAs of 512
-# hidden columns each) and the multiple of K its tiles take
+# the hidden width K5 is built for (a cluster of 8 CTAs of 512 hidden
+# columns each) and the multiple of K its tiles take
 HIDDEN = 4096
 _K_STEP = 128
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def int_mm_takes(m: int, k: int, n: int) -> bool:
+    """Whether ``torch._int_mm``'s cuBLASLt path takes (M, K) x (K, N) on
+    the card: M > 16 and K, N multiples of 8."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def int8_matmul_f64(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """``a (M, K) . b_t (N, K)^T`` as int32 through float64. Exact: every
+    product and partial sum is an integer of magnitude <= K * 127^2 <
+    2^53, so no sum rounds, in any order."""
+    return (a.double() @ b_t.double().t()).to(torch.int32)
 
 
 def int8_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """Exact int8 x int8 -> int32 product ``a (M, K) . b_t (N, K)^T``.
 
-    ``torch._int_mm`` on both devices (exact int32 sums). On a CUDA tensor
-    its cuBLASLt path takes M > 16 and K, N multiples of 8: other shapes
-    raise here instead of being routed elsewhere.
+    ``torch._int_mm`` (exact int32 sums) on the CPU and where its cuBLASLt
+    path takes the shape on the card (:func:`int_mm_takes`); other shapes
+    on the card go through :func:`int8_matmul_f64`, exact as well.
     """
     m, k = a.shape
     n = b_t.shape[0]
-    if a.device.type == "cuda" and (m <= 16 or k % 8 or n % 8):
-        raise ValueError(f"int8 product ({m}, {k}) x ({k}, {n}) on CUDA "
-                         f"needs M > 16 and K, N multiples of 8")
+    if a.device.type == "cuda" and not int_mm_takes(m, k, n):
+        return int8_matmul_f64(a, b_t)
     return torch._int_mm(a, b_t.t())
 
 
@@ -76,56 +103,83 @@ def int8_mlp_reference(x, w1q, s1, b1, w2q, s2, b2):
     return out.to(x.dtype).reshape(*lead, k)
 
 
+def int8_mlp_route(k: int, n: int, dtype: torch.dtype) -> str:
+    """The kernel an MLP of width K and hidden width N takes on the card,
+    by its shape and x's type alone: ``"vitl"`` (K5) for bf16 with N =
+    4096 and K a multiple of 128, ``"generic"`` (K5g) for every other
+    K >= 1, N >= 1 in bf16 or fp32. Raises on other types."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"int8_mlp takes bf16 or fp32 x, got {dtype}")
+    if k < 1 or n < 1:
+        raise ValueError(f"int8_mlp takes K, N >= 1, got K={k}, N={n}")
+    if dtype == torch.bfloat16 and n == HIDDEN and k % _K_STEP == 0:
+        return "vitl"
+    return "generic"
+
+
 @build.lookup
-def _kernel_fn():
-    fn = build.library("int8_mlp").int8_mlp_bf16
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
+def _kernel_fn(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    fn = getattr(build.library(name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @build.lookup
-def _error_string():
-    fn = build.library("int8_mlp").int8_mlp_error_string
+def _error_string(name: str):
+    fn = getattr(build.library(name), f"{name}_error_string")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn
+
+
+def _raise_if(rc: int, name: str):
+    if rc:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{_error_string(name)(rc).decode()} ({rc})")
+
+
+def _check(x, w1q, w2q) -> str:
+    """Checks a CUDA call's operands; returns the route."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"int8_mlp has no kernel for {x.device}")
+    k = x.shape[-1]
+    n = w1q.shape[0]
+    if tuple(w1q.shape) != (n, k) or tuple(w2q.shape) != (k, n):
+        raise ValueError(f"fc1 {tuple(w1q.shape)} / fc2 {tuple(w2q.shape)} "
+                         f"do not make a ({k} -> N -> {k}) MLP")
+    for name, w in (("fc1", w1q), ("fc2", w2q)):
+        if w.dtype != torch.int8 or w.device != x.device:
+            raise TypeError(f"{name} weights are {w.dtype} on {w.device}")
+    return int8_mlp_route(k, n, x.dtype)
+
+
+def _operands(x, w1q, s1, b1, w2q, s2, b2):
+    """x as (M, K), the weights contiguous, the four row vectors fp32."""
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    vecs = [v.to(device=x.device, dtype=torch.float32).contiguous()
+            for v in (s1, b1, s2, b2)]
+    return x2, w1q.contiguous(), w2q.contiguous(), vecs
 
 
 def int8_mlp(x, w1q, s1, b1, w2q, s2, b2):
     """Fused w8a8 MLP: x (..., K) -> (..., K) in x.dtype.
 
     A CPU tensor runs :func:`int8_mlp_reference`; a CUDA tensor launches
-    the kernel on the current stream (no synchronization) or raises. The
-    kernel's three launches (quantize, fc1 on a cluster, fc2) count as one
-    call in ``int8_mlp.launches``.
+    the kernel :func:`int8_mlp_route` names on the current stream (no
+    synchronization) or raises: K5 here, K5g through
+    :func:`int8_mlp_generic`. K5's three launches (quantize, fc1 on a
+    cluster, fc2) count as one call in ``int8_mlp.launches``.
     """
     if x.device.type == "cpu":
         return int8_mlp_reference(x, w1q, s1, b1, w2q, s2, b2)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"int8_mlp has no kernel for {x.device}")
-    if x.dtype != torch.bfloat16:
-        # the kernel serves the bf16 tanh-GELU configs; fp32 configs use
-        # exact GELU and so the unfused path
-        raise TypeError(f"the int8_mlp kernel takes bf16, got {x.dtype}")
+    if _check(x, w1q, w2q) == "generic":
+        return int8_mlp_generic(x, w1q, s1, b1, w2q, s2, b2)
     k = x.shape[-1]
     n = w1q.shape[0]
-    if tuple(w1q.shape) != (n, k) or tuple(w2q.shape) != (k, n):
-        raise ValueError(f"fc1 {tuple(w1q.shape)} / fc2 {tuple(w2q.shape)} "
-                         f"do not make a ({k} -> N -> {k}) MLP")
-    if k % _K_STEP or n != HIDDEN:
-        raise ValueError(f"the kernel takes K a multiple of {_K_STEP} and "
-                         f"N = {HIDDEN}, got K={k}, N={n}")
-    for name, w in (("fc1", w1q), ("fc2", w2q)):
-        if w.dtype != torch.int8 or w.device != x.device:
-            raise TypeError(f"{name} weights are {w.dtype} on {w.device}")
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).contiguous()
+    x2, w1c, w2c, vecs = _operands(x, w1q, s1, b1, w2q, s2, b2)
     m = x2.shape[0]
-    vecs = [v.to(device=x.device, dtype=torch.float32).contiguous()
-            for v in (s1, b1, s2, b2)]
-    w1c, w2c = w1q.contiguous(), w2q.contiguous()
     out = torch.empty_like(x2)
     # scratch of the kernel's three launches: xq and its row scales, the
     # int8 hidden codes and theirs
@@ -133,16 +187,64 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2):
     hq = torch.empty((m, n), dtype=torch.int8, device=x.device)
     rows = torch.empty((2, m), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel_fn()(
+    rc = _kernel_fn("int8_mlp", "int8_mlp_bf16", 12, 3)(
         x2.data_ptr(), w1c.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
         w2c.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
         out.data_ptr(), xq.data_ptr(), rows[0].data_ptr(), hq.data_ptr(),
         rows[1].data_ptr(), m, k, n, stream)
-    if rc:
-        raise RuntimeError(f"int8_mlp launch failed: "
-                           f"{_error_string()(rc).decode()} ({rc})")
+    _raise_if(rc, "int8_mlp")
     int8_mlp.launches += 1
-    return out.reshape(*lead, k)
+    return out.reshape(*x.shape[:-1], k)
 
 
 int8_mlp.launches = 0
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def int8_mlp_generic(x, w1q, s1, b1, w2q, s2, b2):
+    """K5g, the width-generic fused w8a8 MLP: x (..., K) -> (..., K) in
+    x.dtype, bf16 or fp32, any K, N and rows.
+
+    Arguments as :func:`int8_mlp`, which sends the shapes K5 does not
+    take here. A CPU tensor runs :func:`int8_mlp_reference`; a CUDA
+    tensor launches K5g on the current stream or raises. Its four
+    launches (quantize, fc1 + GELU into an fp32 hidden scratch, requantize,
+    fc2) count as one call in ``int8_mlp_generic.launches``; an x with no
+    rows launches nothing.
+    """
+    if x.device.type == "cpu":
+        return int8_mlp_reference(x, w1q, s1, b1, w2q, s2, b2)
+    _check(x, w1q, w2q)
+    k = x.shape[-1]
+    n = w1q.shape[0]
+    x2, w1c, w2c, vecs = _operands(x, w1q, s1, b1, w2q, s2, b2)
+    m = x2.shape[0]
+    out = torch.empty_like(x2)
+    if m == 0:
+        return out.reshape(*x.shape[:-1], k)
+    dev = x.device
+    # scratch of the four launches: xq and hq with rows zero-padded to 16
+    # bytes, the fp32 hidden activation, the two row scales
+    xq = torch.empty((m, _round16(k)), dtype=torch.int8, device=dev)
+    h = torch.empty((m, n), dtype=torch.float32, device=dev)
+    hq = torch.empty((m, _round16(n)), dtype=torch.int8, device=dev)
+    rows = torch.empty((2, m), dtype=torch.float32, device=dev)
+    # 16-byte loads of a weight row where its rows are aligned
+    vec1 = int(k % 16 == 0 and w1c.data_ptr() % 16 == 0)
+    vec2 = int(n % 16 == 0 and w2c.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _kernel_fn("int8_mlp_generic",
+                    f"int8_mlp_generic_{_DTYPES[x.dtype]}", 13, 5)(
+        x2.data_ptr(), w1c.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+        w2c.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
+        out.data_ptr(), xq.data_ptr(), rows[0].data_ptr(), h.data_ptr(),
+        hq.data_ptr(), rows[1].data_ptr(), m, k, n, vec1, vec2, stream)
+    _raise_if(rc, "int8_mlp_generic")
+    int8_mlp_generic.launches += 1
+    return out.reshape(*x.shape[:-1], k)
+
+
+int8_mlp_generic.launches = 0

@@ -12,12 +12,17 @@ original. Its ``weight`` is an :class:`Int8Weight`, so every caller of
 dispatches on it unchanged. The quantized copy is for inference only: no
 gradient flows through ``round``.
 
-:func:`mlp` runs the fused w8a8 kernel (K5,
-:mod:`painter_tpu_torch.kernels.int8_mlp`) when the block's ``mlp_impl``
-is ``"fused"`` and the config's GELU is the tanh one (the kernel's);
-exact-GELU configs take the unfused path, as the JAX package's ``mlp``
-dispatches on the config. On a CUDA tensor ``"fused"`` launches K5 or
-raises.
+:func:`mlp` runs the fused w8a8 kernel
+(:mod:`painter_tpu_torch.kernels.int8_mlp`) when the block's ``mlp_impl``
+is ``"fused"`` and the config's GELU is the tanh one (the kernel's),
+whatever the compute type: bf16 x at the ViT-L widths (hidden 4096, K a
+multiple of 128) takes K5, every other width and fp32 x (a
+``dtype="float32", gelu="tanh"`` config) K5g (``int8_mlp_route``).
+Exact-GELU configs -- fp32 with the default ``gelu="auto"`` -- take the
+unfused path, as the JAX package's ``mlp`` dispatches on the config. On a
+CUDA tensor ``"fused"`` launches the routed kernel or raises. The unfused
+int8 linears' product (``int8_matmul``) takes every shape on both
+devices.
 """
 from __future__ import annotations
 
@@ -156,10 +161,11 @@ def linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor],
 
 def mlp(x: torch.Tensor, fc1: nn.Module, fc2: nn.Module, gelu_approx: bool,
         mlp_impl: str = "xla") -> torch.Tensor:
-    """fc1 -> GELU -> fc2. The fused int8 kernel when ``mlp_impl`` is
-    "fused" and the GELU is tanh; else the two linears (fp or int8) with
-    the GELU between them in ``x.dtype``. "fused" takes int8 layers only:
-    on floating-point ones it raises."""
+    """fc1 -> GELU -> fc2. The fused int8 kernel (K5 or K5g by shape and
+    type, bf16 or fp32 x) when ``mlp_impl`` is "fused" and the GELU is
+    tanh; else the two linears (fp or int8) with the GELU between them in
+    ``x.dtype``. "fused" takes int8 layers only: on floating-point ones
+    it raises."""
     if mlp_impl not in MLP_IMPLS:
         raise ValueError(f"mlp_impl must be one of {MLP_IMPLS}, got "
                          f"{mlp_impl!r}")

@@ -174,6 +174,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"painter_tpu_torch.utils.{m}" for m in (
         "torch_oracle", "parity", "profiling", "component_profile",
         "kernel_stage_profile")} <= set(names)
+    assert {f"painter_tpu_torch.kernels.{m}" for m in (
+        "int8_mlp", "decoder_head", "flash_relpos", "build")} <= set(names)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
