@@ -59,11 +59,14 @@ and Painter ViT-L training through ``train.main --input_size 1280 640``
 (bf16, fused tail, b1 x accum 2); tiny_test served quantized (bf16 and
 fp32 with the tanh GELU, quant int8 and int8-fused: K5g) and through
 ``seggpt_cli.main --model tiny_test --quant int8-fused``; tiny_test with
-a 160-channel decoder trained through ``train.main`` on the fused tail
-(K3g / K4g past 128 channels); and SegGPT ViT-L 896x448 in fp32 with the
-tanh GELU served at int8 and int8-fused (K5g at full width). Checks that
-each path went through its kernels, and that K2, K3, K4, K5, K2g, K4g and
-K5g give the same bits on two runs of the same inputs. Prints its
+a 160-channel decoder trained through ``train.main`` on the fused tail,
+and Painter ViT-L 896x448 with a 256-channel decoder (two updates, its ms
+per update and K3g / K4g's device share), both on K3g / K4g's tensor-core
+route (``csrc/decoder_tail_tc_*.cu``, every bf16 width from 9 but 64);
+and SegGPT ViT-L 896x448 in fp32 with the tanh GELU served at int8 and
+int8-fused (K5g at full width). Checks that each path went through its
+kernels, and that K2, K3, K4, K5, K2g, K3g, K4g and K5g give the same
+bits on two runs of the same inputs. Prints its
 findings, then a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the
 exit code is not 0 and the last line is not printed. Needs a CUDA device;
@@ -3328,16 +3331,30 @@ GENERIC_ATTN_SHAPES = ((4, 16, (8, 4)), (4, 16, (12, 6)), (4, 120, (16, 8)),
 # grid): K2g's main-path shape; K1g timed there too, beside K1, which
 # takes that forward
 GENERIC_MAIN_SHAPE = (16, 64, (80, 40))
-# K3g / K4g (csrc/decoder_tail_generic.cu) at the JAX tests' C = 8 on
-# 16x12 and 12x8, tiny_test's b2 (2, 64, 32, 8) (the main-path shape),
-# widths that pad (40 on a ragged 37x29; 128), and past 128 channels (the
-# chunked route): 160 and 256 at tiny_test's pixels, 256 at a b1 896x448
-# decoder (tanh only there, for time)
+# K3g / K4g at the JAX tests' C = 8 on 16x12 and 12x8, tiny_test's b2
+# (2, 64, 32, 8) (the main-path shape of the scalar route), 40 on a
+# ragged 37x29 and 128, and past 128 channels: 160 and 256 at tiny_test's
+# pixels (split rows: its 128 units would leave SMs idle in whole rows),
+# 264 there (past 256: split rows at any size), 520 on a ragged 16x40
+# (past 512: the N tiles with u in a scratch), 96 on 267x60 (267 units:
+# whole rows whose last item holds one real unit), and a b1 896x448
+# decoder at 256 (whole rows of m64n256, the widest one-warpgroup width;
+# the wide ViT-L update's shape) and 128 (tanh only at 896x448, for time).
+# Widths that are not a multiple of 8, where the tensor-core route pads
+# the pixels to CD > C: 13 on 16x12 and 100 on 37x29 (split rows), 100 on
+# 140x70 (whole rows) and 517 on 8x40 (the N tiles and the row kernels).
+# bf16 at C >= 9 runs the tensor-core kernels (csrc/decoder_tail_tc_*.cu),
+# fp32 and bf16 at C = 8 the scalar ones (csrc/decoder_tail_generic.cu).
 GENERIC_TAIL_SHAPES = (((2, 16, 12), 8), ((2, 12, 8), 8), ((2, 64, 32), 8),
                        ((2, 37, 29), 40), ((1, 16, 16), 128),
                        ((2, 64, 32), 160), ((2, 64, 32), 256),
-                       ((1, 896, 448), 256))
+                       ((2, 64, 32), 264), ((1, 16, 40), 520),
+                       ((1, 267, 60), 96), ((2, 16, 12), 13),
+                       ((2, 37, 29), 100), ((1, 140, 70), 100),
+                       ((1, 8, 40), 517), ((1, 896, 448), 256),
+                       ((1, 896, 448), 128))
 GENERIC_TAIL_BIG = ((1, 896, 448), 256)
+GENERIC_TAIL_BIG_SHAPES = (GENERIC_TAIL_BIG, ((1, 896, 448), 128))
 GENERIC_TAIL_MAIN = ((2, 64, 32), 8)
 TINY = "tiny_test"
 # tiny_test with 2x2 windows in half its blocks: key grids of width 2
@@ -3363,9 +3380,20 @@ def _vitl_counts():
             dh.fused_decoder_tail, dh.fused_decoder_tail_bwd, k5.int8_mlp)
 
 
+def _tc_counts():
+    from painter_tpu_torch.kernels import decoder_head as dh
+    return dh.fused_decoder_tail_tc, dh.fused_decoder_tail_bwd_tc
+
+
 def _zero_counts():
-    for fn in _generic_counts() + _vitl_counts():
+    for fn in _generic_counts() + _vitl_counts() + _tc_counts():
         fn.launches = 0
+
+
+def _read_tc_counts():
+    """(K3g, K4g) launches on the tensor-core route (the scalar route's are
+    in :func:`_read_counts`)."""
+    return tuple(fn.launches for fn in _tc_counts())
 
 
 def _read_counts():
@@ -3427,37 +3455,78 @@ def phase_generic_attention(label):
 
 def phase_generic_tail(label):
     """K3g / K4g against their plain versions at GENERIC_TAIL_SHAPES, in
-    bf16 and fp32, both GELU flavours (the tanh one at GENERIC_TAIL_BIG);
-    each twice, bitwise."""
+    bf16 and fp32, both GELU flavours (the tanh one at
+    GENERIC_TAIL_BIG_SHAPES); each twice, bitwise; each on the route
+    ``generic_tail_route`` names (its launches counted). Then K3g / K4g's
+    device time per launch at GENERIC_TAIL_BIG in bf16 (the packing, the
+    kernels and the wrapper's partial sums)."""
     from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
     for i, (shape, c) in enumerate(GENERIC_TAIL_SHAPES):
         check(dh.decoder_route(c, torch.bfloat16) == "generic",
               f"C={c} is not routed to K3g / K4g")
-        big = (shape, c) == GENERIC_TAIL_BIG
+        big = (shape, c) in GENERIC_TAIL_BIG_SHAPES
         for dtype in FP32:
+            route = dh.generic_tail_route(c, dtype)
             for approx in (True,) if big else (True, False):
+                _zero_counts()
                 r = tail_case(shape, dtype, approx, seed=600 + i,
-                              iters=2 if big else 5, c=c, generic=True)
+                              iters=(10 if dtype == torch.bfloat16 else 2)
+                              if big else 5, c=c, generic=True)
+                scalar, tc = _read_counts()[1][2:4], _read_tc_counts()
+                check(min(tc if route == "tc" else scalar) > 0
+                      and max(scalar if route == "tc" else tc) == 0,
+                      f"C={c} {dtype}: route {route}, launches scalar "
+                      f"{scalar} tensor-core {tc}")
+                r["K3"]["route"] = r["K4"]["route"] = route
                 rows.append(r)
                 k4e = " ".join(f"{n} {e:.1e}"
                                for n, e in r["K4"]["rel_errs"].items())
                 for name in ("K3g", "K4g"):
                     x = r[name[:2]]
                     print(f"# {name} {x['dtype']} {shape} C={c} "
-                          f"{'tanh' if approx else 'erf'}: err/max|plain| "
-                          f"{x['rel_err']:.2e}"
+                          f"{'tanh' if approx else 'erf'} ({route} route): "
+                          f"err/max|plain| {x['rel_err']:.2e}"
                           + (f" ({k4e})" if name == "K4g" else "")
                           + " (two runs bitwise equal)"
                           + f" kernel_ms {x['ms']:.4f} ({_rate(x)}) "
                           f"device_ms {_opt(x['device_ms'])} plain_ms "
                           f"{x['plain_ms']:.4f} library_ms(stock tail "
-                          f"{'fwd' if name == 'K3g' else 'bwd'}) "
+                          f"{'fwd' if name == 'K3g' else 'bwd'}, TF32 off) "
                           f"{x['library_ms']:.4f} bound_ms "
                           f"{x['bound_ms']:.4f} ({x['flop']:.4e} FLOP, "
                           f"{x['bound_by']}) [{label}]")
+    for c in (5, 40, 264):  # the packing launch against its plain version
+        g = torch.Generator(device="cuda").manual_seed(680 + c)
+        params = _tail_params(c, g)
+        cd = -(-c // dh.TC_STEP) * dh.TC_STEP
+        packed = dh._pack(torch.empty(1, 1, 1, c, device="cuda"), *params,
+                          cd)
+        check(torch.equal(packed, dh.pack_reference(*params, cd)),
+              f"the packing launch at C={c} differs from its plain version")
+    print(f"# K3g / K4g packing launch at C 5, 40, 264: bitwise equal to "
+          f"its plain version [{label}]")
+    shape, c = GENERIC_TAIL_BIG
+    g = torch.Generator(device="cuda").manual_seed(690)
+    pix = torch.randn(*shape, c, generator=g, device="cuda").to(
+        torch.bfloat16)
+    params = _tail_params(c, g)
+    go = torch.randn(*shape, 3, generator=g, device="cuda").to(
+        torch.bfloat16)
+    for what, fn, names in (
+            ("K3g", lambda: dh.fused_decoder_tail_generic(pix, *params, True),
+             dh.GENERIC_KERNEL_NAMES),
+            ("K4g", lambda: dh.fused_decoder_tail_bwd_generic(
+                pix, *params[:5], go, True),
+             dh.GENERIC_KERNEL_NAMES + ("reduce_kernel",))):
+        split = device_ms_by_kernel(fn, 10, names)
+        print(f"# {what} bf16 {shape} C={c} tanh, device ms per launch: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f" (sum {sum(split.values()):.4f}) [{label}]")
+    del pix, go, params
     for shape, c in TF32_TAIL_SHAPES:
         shift = _tf32_tail_shift(shape, c)
         print(f"# plain fp32 tail {shape} C={c}: cuDNN TF32 on moves it "
@@ -3467,6 +3536,18 @@ def phase_generic_tail(label):
         check(shift > K3_TOL[torch.float32],
               f"TF32 moved the plain tail only {shift} at {shape} C={c}")
     return rows
+
+
+def _tail_params(c, g):
+    """Seeded fp32 decoder-tail parameters of width ``c`` (conv1 weight,
+    conv1 bias, LN scale, LN bias, conv2 weight, conv2 bias) on the card,
+    scaled as ``tail_case``'s."""
+    return (torch.randn(c, c, 3, 3, generator=g, device="cuda")
+            * (9 * c) ** -0.5,
+            *(torch.randn(c, generator=g, device="cuda") * 0.1 + s
+              for s in (0.0, 1.0, 0.0)),
+            torch.randn(3, c, 1, 1, generator=g, device="cuda") * c ** -0.5,
+            torch.randn(3, generator=g, device="cuda") * 0.1)
 
 
 # fp32 tails at which the plain version is read with cuDNN's TF32 on and
@@ -3480,12 +3561,7 @@ def _tf32_tail_shift(shape, c):
     from painter_tpu_torch.kernels import decoder_head as dh
     g = torch.Generator(device="cuda").manual_seed(650)
     pix = torch.randn(*shape, c, generator=g, device="cuda")
-    params = (torch.randn(c, c, 3, 3, generator=g, device="cuda")
-              * (9 * c) ** -0.5,
-              *(torch.randn(c, generator=g, device="cuda") * 0.1 + s
-                for s in (0.0, 1.0, 0.0)),
-              torch.randn(3, c, 1, 1, generator=g, device="cuda") * c ** -0.5,
-              torch.randn(3, generator=g, device="cuda") * 0.1)
+    params = _tail_params(c, g)
     outs = []
     for tf32 in (True, False):
         torch.backends.cudnn.allow_tf32 = tf32
@@ -3778,16 +3854,19 @@ def phase_cli_tiny(label):
     return k5g
 
 
-# a decoder past 128 channels (K3g / K4g's chunked route)
+# a decoder past 128 channels (K3g / K4g's tensor-core route in bf16)
 WIDE_DECODER = 160
+# Painter ViT-L 896x448 with a 256-channel decoder (the widest whole-rows
+# width of the tensor-core route)
+WIDE_VITL_DECODER = 256
 
 
 def phase_tiny_wide_decoder(label):
     """tiny_test with ``decoder_embed_dim`` 160 trains through
     ``train.main --model tiny_test --decoder_impl fused`` (the preset
-    widened for the call): K3g / K4g once per micro-batch, no ViT-L
-    kernel; each loss finite, each update changes the parameters.
-    Returns (K3g, K4g) launches."""
+    widened for the call): K3g / K4g on the tensor-core route once per
+    micro-batch, no ViT-L kernel and no scalar K3g / K4g; each loss finite,
+    each update changes the parameters. Returns (K3g, K4g) launches."""
     import functools
     from painter_tpu_torch import configs
     updates, accum, val = 2, 2, 2
@@ -3799,13 +3878,80 @@ def phase_tiny_wide_decoder(label):
             label, f"train.main --model tiny_test (decoder_embed_dim "
             f"{WIDE_DECODER})", TINY, (64, 32), "bfloat16", 2, accum,
             updates, val)
+        tc = _read_tc_counts()
     finally:
         configs.PRESETS[TINY] = real
     micro = updates * accum
     check(counts[0] == (0,) * 5 and counts[1] == (
-        depth * (micro + val), depth * micro, micro, micro, 0),
-        f"tiny_test (decoder {WIDE_DECODER}) training launched {counts}")
-    return counts[1][2], counts[1][3]
+        depth * (micro + val), depth * micro, 0, 0, 0)
+        and tc == (micro, micro),
+        f"tiny_test (decoder {WIDE_DECODER}) training launched {counts}, "
+        f"tensor-core K3g / K4g {tc}")
+    return tc
+
+
+def phase_vitl_wide_decoder(label):
+    """Painter ViT-L 896x448 with ``decoder_embed_dim`` 256 (the preset
+    widened for the call, as phase_tiny_wide_decoder widens tiny_test)
+    trains through ``train.main --decoder_impl fused`` (bf16, b1 x accum 2,
+    2 updates, validation): K1 / K2 on every block, K3g / K4g on the
+    tensor-core route once per micro-batch, no K3 / K4 and no K1g / K2g;
+    each loss finite, each update changes the parameters. Then the ms per
+    update on a device-resident batch (median of 3 after a warm-up) and
+    K3g / K4g's device time in one profiled update. Returns ((K3g, K4g)
+    launches, ms per update, K3g / K4g device ms per update)."""
+    import functools
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.train import optim
+    from painter_tpu_torch.train import step as step_lib
+    from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
+    updates, accum, val = 2, 2, 2
+    real = configs.PRESETS[PAINTER]
+    configs.PRESETS[PAINTER] = functools.partial(
+        real, decoder_embed_dim=WIDE_VITL_DECODER)
+    try:
+        t0 = time.perf_counter()
+        counts, _, _, depth = _train_main(
+            label, f"train.main Painter ViT-L 896x448 (decoder_embed_dim "
+            f"{WIDE_VITL_DECODER})", PAINTER, (896, 448), "bfloat16", 1,
+            accum, updates, val)
+        tc = _read_tc_counts()
+        micro = updates * accum
+        check(counts[0] == (depth * (micro + val), depth * micro, 0, 0, 0)
+              and counts[1] == (0,) * 5 and tc == (micro, micro),
+              f"ViT-L wide-decoder training launched {counts}, "
+              f"tensor-core K3g / K4g {tc}")
+        print(f"# ViT-L 896x448 decoder {WIDE_VITL_DECODER} training drive: "
+              f"{time.perf_counter() - t0:.1f} s with model build, data "
+              f"workers and validation")
+        cfg = configs.get_config(PAINTER, dtype="bfloat16")
+        check(cfg.decoder_embed_dim == WIDE_VITL_DECODER,
+              f"decoder width {cfg.decoder_embed_dim}")
+        model = _seeded_model(cfg, 41).train()
+    finally:
+        configs.PRESETS[PAINTER] = real
+    opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
+        warmup_epochs=0.0, steps_per_epoch=10))
+    step = step_lib.make_train_step(cfg, opt, accum_iter=accum,
+                                    decoder_impl="fused")
+    batch = _train_batch(cfg, 1, seed=42, accum=accum)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    _timed_updates(step, model, batch, gen, 1)
+    times = _timed_updates(step, model, batch, gen, 3)
+    by_kernel = device_ms_by_kernel(lambda: step(model, batch, gen), 1,
+                                    dh.TC_KERNEL_NAMES)
+    tail_ms = sum(by_kernel.values())
+    ms = 1e3 * statistics.median(times)
+    print(f"# ViT-L 896x448 decoder {WIDE_VITL_DECODER} update (b1 x accum "
+          f"{accum}, bf16, save_kernel, fused tail): {ms:.2f} ms median of "
+          f"{[round(1e3 * x, 2) for x in times]}; K3g / K4g device time in "
+          f"one update {tail_ms:.3f} ms ({100 * tail_ms / ms:.2f}% of the "
+          f"update; {', '.join(f'{k} {v:.3f}' for k, v in by_kernel.items())}"
+          f"; {accum} calls each) [{label}]")
+    del model, opt
+    torch.cuda.empty_cache()
+    return tc, ms, tail_ms
 
 
 def phase_int8_fp32_serving(label):
@@ -4019,10 +4165,10 @@ def main():
                                                phase_gloo_ranks, label)
     fe_k1, fe_k2, fe_k3, fe_k4 = timed("data front end",
                                        phase_data_front_end, label)
-    vitl_gen = _read_counts()[1]
-    print(f"# K1g-K4g and K5g launches on every ViT-L 896x448 path above: "
-          f"{vitl_gen}")
-    check(vitl_gen == (0,) * 5,
+    vitl_gen = _read_counts()[1] + _read_tc_counts()
+    print(f"# K1g-K4g and K5g, tensor-core K3g / K4g launches on every ViT-L "
+          f"896x448 path above: {vitl_gen}")
+    check(vitl_gen == (0,) * 7,
           f"a ViT-L 896x448 path launched a generic kernel: {vitl_gen}")
     tiny_k1g = timed("tiny_test serving", phase_tiny_serving, label)
     tiny_gen = timed("tiny_test training", phase_tiny_train, label)
@@ -4031,6 +4177,8 @@ def main():
     cli_tiny_k5g = timed("CLI tiny_test int8-fused", phase_cli_tiny, label)
     wide_k3g, wide_k4g = timed("tiny_test wide decoder training",
                                phase_tiny_wide_decoder, label)
+    (vw_k3g, vw_k4g), _, _ = timed("ViT-L 896x448 wide decoder training",
+                                   phase_vitl_wide_decoder, label)
     fp32_k5g, _ = timed("SegGPT ViT-L fp32 int8 serving",
                         phase_int8_fp32_serving, label)
     timed("gradient check 1280x640", phase_grad_check_1280, label)
@@ -4058,7 +4206,9 @@ def main():
           f"--quant int8-fused {eval_k5}; ViT-L 1280x640 training (K1, "
           f"K2g, K3, K4) {t1280}; tiny_test: K1g serving {tiny_k1g}, "
           f"training (K1g, K2g, K3g, K4g) {tiny_gen}, decoder "
-          f"{WIDE_DECODER} training (K3g, K4g) ({wide_k3g}, {wide_k4g}); "
+          f"{WIDE_DECODER} training (tensor-core K3g, K4g) ({wide_k3g}, "
+          f"{wide_k4g}); ViT-L 896x448 decoder {WIDE_VITL_DECODER} training "
+          f"(tensor-core K3g, K4g) ({vw_k3g}, {vw_k4g}); "
           f"K5g launches: SegGPT ViT-L fp32 int8-fused serving {fp32_k5g}, "
           f"tiny_test int8-fused serving {tiny_k5g}, CLI tiny_test "
           f"{cli_tiny_k5g}")
@@ -4076,6 +4226,9 @@ def main():
     gen_tail = next(r for r in gen_tail_rows if (
         tuple(r["K3"]["shape"]), r["K3"]["c"]) == GENERIC_TAIL_MAIN
         and r["K3"]["dtype"] == str(torch.bfloat16) and r["K3"]["approx"])
+    tc_tail = next(r for r in gen_tail_rows if (
+        tuple(r["K3"]["shape"]), r["K3"]["c"]) == GENERIC_TAIL_BIG
+        and r["K3"]["dtype"] == str(torch.bfloat16))
     kernels = [
         _kernel_entry("flash_relpos_fwd",
                       "painter_tpu/kernels/flash_relpos.py:399",
@@ -4103,12 +4256,16 @@ def main():
                       "flash_relpos_generic"),
         _kernel_entry("decoder_tail_generic_fwd",
                       "painter_tpu/kernels/decoder_head.py:180",
-                      tiny_gen[2] + wide_k3g, gen_tail["K3"],
-                      "decoder_tail_generic"),
+                      tiny_gen[2], gen_tail["K3"], "decoder_tail_generic"),
         _kernel_entry("decoder_tail_generic_bwd",
                       "painter_tpu/kernels/decoder_head.py:304",
-                      tiny_gen[3] + wide_k4g, gen_tail["K4"],
-                      "decoder_tail_generic"),
+                      tiny_gen[3], gen_tail["K4"], "decoder_tail_generic"),
+        _kernel_entry("decoder_tail_tc_fwd",
+                      "painter_tpu/kernels/decoder_head.py:180",
+                      wide_k3g + vw_k3g, tc_tail["K3"]),
+        _kernel_entry("decoder_tail_tc_bwd",
+                      "painter_tpu/kernels/decoder_head.py:304",
+                      wide_k4g + vw_k4g, tc_tail["K4"]),
         _kernel_entry("int8_mlp_generic",
                       "painter_tpu/kernels/int8_mlp.py:87",
                       fp32_k5g + tiny_k5g + cli_tiny_k5g, k5g_row)]

@@ -39,7 +39,8 @@ NATIVE_SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
 SOURCES = ("flash_relpos_fwd", "flash_relpos_bwd", "flash_relpos_generic",
            "decoder_tail_fwd", "decoder_tail_bwd", "decoder_tail_generic",
-           "int8_mlp", "int8_mlp_generic")
+           "decoder_tail_tc_fwd", "decoder_tail_tc_bwd", "int8_mlp",
+           "int8_mlp_generic")
 HOST_SOURCES = ("image_ops",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

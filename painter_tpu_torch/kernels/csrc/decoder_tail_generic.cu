@@ -1,14 +1,17 @@
-// Width-generic fused decoder tail: forward (K3g) and backward (K4g) at
-// every decoder width C >= 1 but the presets' 64.
+// Width-generic fused decoder tail, the scalar route: forward (K3g) and
+// backward (K4g) in fp32 at every decoder width C >= 1 but the presets' 64,
+// and in bf16 at C <= 8 (bf16 at C >= 9 runs on the tensor cores,
+// decoder_tail_tc_fwd.cu / decoder_tail_tc_bwd.cu).
 //
 // Replaces the TPU kernels painter_tpu/kernels/decoder_head.py:_fwd_impl
 // (K3g) and _bwd_impl (K4g) at the widths the kernels of
 // decoder_tail_fwd.cu / decoder_tail_bwd.cu are not built for (they take
 // C = 64, the presets' ViT-L width); the wrapper (kernels/decoder_head.py
-// decoder_route) sends a width here by its shape alone.
+// decoder_route, generic_tail_route) sends a width here by its shape and
+// type alone.
 //
 // Contracts: those of decoder_tail_fwd.cu and decoder_tail_bwd.cu at a
-// channel count CP, each in bf16 and fp32, of which the first C are real:
+// channel count CP (fp32; bf16 at CP = 8), of which the first C are real:
 // the wrapper zero-pads the pixels, the conv weights and the row vectors to
 // CP channels. CP is 8, 16, 32, 64 or 128 (templates) for C <= 128, and C
 // rounded up to a multiple of 8 past that (the wide route, CP a runtime
@@ -850,8 +853,9 @@ int decoder_tail_generic_fwd_bf16(const void* pix, const void* w1,
                                   const void* b2, void* out, int B, int H,
                                   int W, int cp, int C, int approx,
                                   void* stream) {
-  return fwd_at<bf16>(cp, pix, w1, b1, lns, lnb, w2, b2, out, B, H, W, C,
-                      approx, stream);
+  if (cp != 8) return (int)cudaErrorInvalidValue;  // C >= 9: the tc route
+  return launch_fwd<bf16, 8>(pix, w1, b1, lns, lnb, w2, b2, out, B, H, W, C,
+                             approx, static_cast<cudaStream_t>(stream));
 }
 
 int decoder_tail_generic_fwd_f32(const void* pix, const void* w1,
@@ -874,8 +878,10 @@ int decoder_tail_generic_bwd_bf16(const void* pix, const void* go,
                                   void* dpix, void* dw1_part,
                                   void* small_part, int B, int H, int W,
                                   int cp, int C, int approx, void* stream) {
-  return bwd_at<bf16>(cp, pix, go, w1, w1t, b1, lns, lnb, w2, du, dpix,
-                      dw1_part, small_part, B, H, W, C, approx, stream);
+  if (cp != 8) return (int)cudaErrorInvalidValue;  // C >= 9: the tc route
+  return launch_bwd<bf16, 8>(pix, go, w1, w1t, b1, lns, lnb, w2, du, dpix,
+                             dw1_part, small_part, B, H, W, C, approx,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int decoder_tail_generic_bwd_f32(const void* pix, const void* go,
@@ -891,17 +897,6 @@ int decoder_tail_generic_bwd_f32(const void* pix, const void* go,
 
 // C > 128: cp, a multiple of 8 > 128, the width the inputs are padded to;
 // u: a (B, H, W, cp) fp32 scratch
-int decoder_tail_generic_wide_fwd_bf16(const void* pix, const void* w1,
-                                       const void* b1, const void* lns,
-                                       const void* lnb, const void* w2,
-                                       const void* b2, void* out, void* u,
-                                       int B, int H, int W, int cp, int C,
-                                       int approx, void* stream) {
-  return launch_wide_fwd<bf16>(pix, w1, b1, lns, lnb, w2, b2, out, u, B, H,
-                               W, cp, C, approx,
-                               static_cast<cudaStream_t>(stream));
-}
-
 int decoder_tail_generic_wide_fwd_f32(const void* pix, const void* w1,
                                       const void* b1, const void* lns,
                                       const void* lnb, const void* w2,
@@ -917,17 +912,6 @@ int decoder_tail_generic_wide_fwd_f32(const void* pix, const void* w1,
 // small_part (ctas, 6 cp + 3) fp32, one row per CTA of the (ceil(W / 16),
 // ceil(H / 8), B) grid; dw1_part (slices, 9 cp cp) fp32, one row per slice
 // of the B H W pixels (ceil(B H W / slices) each, in order)
-int decoder_tail_generic_wide_bwd_bf16(
-    const void* pix, const void* go, const void* w1, const void* w1t,
-    const void* b1, const void* lns, const void* lnb, const void* w2,
-    void* u, void* du, void* dpix, void* dw1_part, void* small_part, int B,
-    int H, int W, int cp, int C, int slices, int approx, void* stream) {
-  return launch_wide_bwd<bf16>(pix, go, w1, w1t, b1, lns, lnb, w2, u, du,
-                               dpix, dw1_part, small_part, B, H, W, cp, C,
-                               slices, approx,
-                               static_cast<cudaStream_t>(stream));
-}
-
 int decoder_tail_generic_wide_bwd_f32(
     const void* pix, const void* go, const void* w1, const void* w1t,
     const void* b1, const void* lns, const void* lnb, const void* w2,

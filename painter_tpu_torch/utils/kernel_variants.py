@@ -28,7 +28,10 @@ and ``kernels/build.py``'s ``swapped``).
 
 With ``--against DIR`` (the root of another checkout, e.g. ``git archive``
 of a parent commit unpacked), K3 and K4 built from DIR's sources are timed
-in turns with this checkout's (other, this, this, other).
+in turns with this checkout's (other, this, this, other), and so are K3g
+and K4g in bf16 (tanh) at ``GENERIC_SHAPES``: DIR's tensor-core sources
+(``decoder_tail_tc_*.cu``) under this checkout's wrappers
+(``fused_decoder_tail_tc`` / ``fused_decoder_tail_bwd_tc``).
 
     python -m painter_tpu_torch.utils.kernel_variants [--iters 50]
         [--against DIR]
@@ -120,6 +123,9 @@ K4_VARIANTS: Dict[str, Tuple[str, Edits]] = {
 # the decoder tail's device kernels, and K4's du / dpix launches as an
 # earlier design named them
 TAIL_KERNELS = (*dh.KERNEL_NAMES, "conv_kernel")
+# K3g / K4g's --against shapes ((B, H, W), C): the wide ViT-L update's
+# decoder and tiny_test's pixels at a 160-channel decoder
+GENERIC_SHAPES = (((1, 896, 448), 256), ((2, 64, 32), 160))
 
 
 def apply_edits(edits: Edits, dst: str, csrc: str = build.CSRC) -> None:
@@ -169,12 +175,11 @@ def build_variants(variants: Dict[str, Tuple[str, Edits]],
     return libs
 
 
-def tail_inputs(shape=(2, 896, 448), seed=200):
-    """bf16 pixels and upstream gradient, fp32 parameters at ``shape`` from
-    ``seed``, scaled as ``chip_smoke.py``'s tail case."""
+def tail_inputs(shape=(2, 896, 448), seed=200, c=dh.CHANNELS):
+    """bf16 pixels and upstream gradient, fp32 parameters at ``shape`` and
+    width ``c`` from ``seed``, scaled as ``chip_smoke.py``'s tail case."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, h, w = shape
-    c = dh.CHANNELS
 
     def rnd(*sh, scale=1.0, shift=0.0):
         return torch.randn(*sh, generator=g, device="cuda") * scale + shift
@@ -191,8 +196,9 @@ def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def _measure(what, variant, libs, fn, ref, iters):
-    """One turn: ``fn`` on ``libs`` against ``ref``, then its times."""
+def _measure(what, variant, libs, fn, ref, iters, names=TAIL_KERNELS):
+    """One turn: ``fn`` on ``libs`` against ``ref``, then its times (device
+    time of the kernels named ``names``)."""
     with build.swapped(libs):
         out, again = _tuple(fn()), _tuple(fn())
         torch.cuda.synchronize()
@@ -204,7 +210,7 @@ def _measure(what, variant, libs, fn, ref, iters):
                                  for a, x in zip(out, again)),
                "ms": event_ms(fn, iters, warmup=3),
                "device_ms_by_kernel": device_ms_by_kernel(fn, iters,
-                                                          TAIL_KERNELS)}
+                                                          names)}
     by_kernel = row["device_ms_by_kernel"]
     row["device_ms"] = sum(by_kernel.values()) if by_kernel else None
     dev = ("not measured" if row["device_ms"] is None else
@@ -260,6 +266,40 @@ def run(iters: int, against: str = "") -> List[dict]:
                 rows.append(_measure(what, name,
                                      {} if name == "kernel" else use,
                                      fn, ref, iters))
+    if against:
+        rows += generic_against(against, max(2, iters // 10))
+    return rows
+
+
+def generic_against(against: str, iters: int) -> List[dict]:
+    """K3g and K4g (bf16, tanh) at ``GENERIC_SHAPES`` built from the
+    tensor-core sources of the checkout at ``against`` in turns with this
+    checkout's (other, this, this, other); the wrapper's host work is in
+    ``ms``."""
+    csrc = os.path.join(against, "painter_tpu_torch", "kernels", "csrc")
+    sources = ("decoder_tail_tc_fwd", "decoder_tail_tc_bwd")
+    built = build_variants({f"against_{name}": (name, {})
+                            for name in sources}, csrc)
+    use = {name: built[f"against_{name}"] for name in sources}
+    rows = []
+    for shape, c in GENERIC_SHAPES:
+        pix, params, go = tail_inputs(shape, 610, c)
+        for what, fn, ref in (
+                (f"K3g bf16 {shape} C={c} tanh",
+                 functools.partial(dh.fused_decoder_tail_tc, pix, *params,
+                                   True),
+                 dh.fused_decoder_tail_reference(pix, *params, True)),
+                (f"K4g bf16 {shape} C={c} tanh",
+                 functools.partial(dh.fused_decoder_tail_bwd_tc, pix,
+                                   *params[:5], go, True),
+                 dh.fused_decoder_tail_bwd_reference(pix, *params[:5], go,
+                                                     True))):
+            for name in ("against", "kernel", "kernel", "against"):
+                rows.append(_measure(
+                    what, name, use if name == "against" else {}, fn, ref,
+                    iters, dh.TC_KERNEL_NAMES + ("reduce_kernel",)))
+        del pix, params, go
+        torch.cuda.empty_cache()
     return rows
 
 

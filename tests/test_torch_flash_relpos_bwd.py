@@ -309,7 +309,9 @@ def test_bwd_build_target_and_source_note():
     assert set(build.SOURCES) == {"flash_relpos_fwd", "flash_relpos_bwd",
                                   "flash_relpos_generic",
                                   "decoder_tail_fwd", "decoder_tail_bwd",
-                                  "decoder_tail_generic", "int8_mlp",
+                                  "decoder_tail_generic",
+                                  "decoder_tail_tc_fwd",
+                                  "decoder_tail_tc_bwd", "int8_mlp",
                                   "int8_mlp_generic"}
     with open("/".join([build.CSRC, "flash_relpos_bwd.cu"])) as f:
         src = f.read()
