@@ -83,6 +83,21 @@
 // buffers, FMAs, synchronous loads) and sums the rel-bias gradients from
 // the fp32 dS: it exists for tight comparisons, not speed.
 //
+// Which key grids it takes: those its shared-memory layouts fit. Every
+// per-row buffer is sized by kh and kw, and the launchers refuse
+// (cudaErrorInvalidValue) a (kh, kw) whose bytes exceed SMEM_OPTIN, the
+// 227 KiB a block may opt into on an H100 (or, for the bf16 dq kernel's
+// raw rel-term staging, the two ring stages it borrows). The reckonings
+// are the functions dq_smem_bytes / raw_stage_bytes / dkv_smem_bytes of
+// each namespace. The staging binds first, at kh + kw <= 127, which is
+// the route's one limit (kernels/flash_relpos.py BWD_MAX_REL_ENTRIES); a
+// launch past these figures raises. At the 80x40 grid of 1280x640 the
+// bf16 dq kernel takes 199,168 B (its rel pairs and d rel_h pairs are
+// 512 B per kh + kw + 1 and per kh), the staging 30,752 of 32,768 B, the
+// dk/dv kernel 133,120 B; the fp32 kernels take 165,888 and 150,784 B. No
+// register array is sized by kh or kw; the bf16 d rel_w accumulator is
+// KW_MAX = 40 columns.
+//
 // The launcher allocates nothing and does not synchronize; it returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
@@ -101,6 +116,7 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int WROWS = BT / WARPS;  // rows per warp (16)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t SMEM_OPTIN = 232448;  // dynamic shared memory of a block
 
 // the number of kh bins (key-grid rows) that keys [k0, kend) touch
 __device__ __forceinline__ int bins_touched(int k0, int kend, int kw) {
@@ -423,6 +439,10 @@ int launch(const void* q, const void* k, const void* v, const void* rel_h,
            const void* delta, void* dq, void* dk, void* dv, void* drel_h,
            void* drel_w, int bh, int L, int kh, int kw, float scale,
            cudaStream_t st) {
+  const int nbmax = max_bins(kh, kw);
+  if (dq_smem_bytes(kh, kw) > SMEM_OPTIN ||
+      dkv_smem_bytes(nbmax, kw) > SMEM_OPTIN)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((L + BT - 1) / BT, bh);
   const size_t smem_a = dq_smem_bytes(kh, kw);
   cudaError_t err = cudaFuncSetAttribute(
@@ -438,7 +458,6 @@ int launch(const void* q, const void* k, const void* v, const void* rel_h,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int nbmax = max_bins(kh, kw);
   const size_t smem_b = dkv_smem_bytes(nbmax, kw);
   err = cudaFuncSetAttribute(
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
@@ -539,6 +558,18 @@ size_t dq_smem_bytes(int kh, int kw) {
          (size_t)(DQ_ROWS / 2) * kh * 8;                      // d rel_h pairs
 }
 
+// elements from the raw rel_h block to the raw rel_w block: the room of a
+// copy_block destination of n elements (n + 8), rounded to 16 bytes
+__host__ __device__ constexpr int raw_w_offset(int n) {
+  return (n + 8 + 7) & ~7;
+}
+
+// the raw rel terms of DQ_ROWS rows, staged in ring stages 1-2
+constexpr size_t raw_stage_bytes(int kh, int kw) {
+  return 2 * ((size_t)raw_w_offset(DQ_ROWS * kh) + DQ_ROWS * kw + 8);
+}
+constexpr size_t RAW_STAGE_ROOM = 2 * (size_t)DQ_STAGE_BYTES;
+
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           const __grid_constant__ CUtensorMap tm_k,
@@ -593,7 +624,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   {
     const int rows = min(DQ_ROWS, L - q0);
     bf16* raw_h = reinterpret_cast<bf16*>(smem + DQ_OFF_ST + DQ_STAGE_BYTES);
-    bf16* raw_w = raw_h + ((rows * kh + 8 + 7) & ~7);
+    bf16* raw_w = raw_h + raw_w_offset(rows * kh);
     const int dh = relpos::copy_block(
         raw_h, rel_h + ((size_t)bh * L + q0) * kh, rows * kh, tid, DQ_THREADS);
     const int dw = relpos::copy_block(
@@ -1070,8 +1101,12 @@ int launch(const void* q, const void* k, const void* v, const void* rel_h,
            void* drel_w, int bh, int L, int kh, int kw, float scale,
            cudaStream_t st) {
   // the one-hot expanders: d rel_w in NW n-tiles of 8 columns, and the
-  // grid rows of a 64-key tile in one n-tile of 8
-  if (kw > KW_MAX || (BT - 1) / kw + 2 > 8) return (int)cudaErrorInvalidValue;
+  // grid rows of a 64-key tile in one n-tile of 8; then the layouts' bytes
+  if (kw > KW_MAX || (BT - 1) / kw + 2 > 8 ||
+      dq_smem_bytes(kh, kw) > SMEM_OPTIN ||
+      raw_stage_bytes(kh, kw) > RAW_STAGE_ROOM ||
+      dkv_smem_bytes(kh, kw) > SMEM_OPTIN)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tq128, tk, tk128, tv, tv128, tdo, tdo128;
   if (!make_map(&tq, q, bh, L, BT) || !make_map(&tq128, q, bh, L, 128) ||
       !make_map(&tk, k, bh, L, BT) || !make_map(&tk128, k, bh, L, 128) ||

@@ -5,10 +5,10 @@
 // (K1g) and _bwd_impl (K2g) at the shapes the ViT-L kernels of
 // flash_relpos_fwd.cu / flash_relpos_bwd.cu are not built for: head dims
 // other than 64, and key grids past their rel-term limits (K1: kh + kw <=
-// 190; K2: kh + kw <= 110, and in bf16 a grid width in [10, 40]). The
-// wrapper (kernels/flash_relpos.py attention_route) sends a shape here by
-// its shape alone; the JAX kernel's domain, hd + min(kh, kw) <= 128, is
-// the domain of this file.
+// 190; K2: kh + kw <= 127, its bf16 dq kernel's rel-term staging, and in
+// bf16 a grid width in [10, 40]). The wrapper (kernels/flash_relpos.py
+// attention_route) sends a shape here by its shape alone; the JAX
+// kernel's domain, hd + min(kh, kw) <= 128, is the domain of this file.
 //
 // Contracts: those of flash_relpos_fwd.cu and flash_relpos_bwd.cu, at a
 // head dim D in {16, 32, 64, 128} (templates, each in bf16 and fp32). The

@@ -6,7 +6,7 @@
 // Replaces the TPU kernel painter_tpu/kernels/int8_mlp.py:_int8_mlp_2d
 // (kernel _kernel), reached through int8_mlp.
 //
-// Contract, per row i of x (M, K) bf16, with fc1 weights
+// Contract, per row i of x (M, K) bf16 or fp32, with fc1 weights
 // W1q int8 (N, K), fp32 scales s1 (N,) and bias b1 (N,), fc2 W2q int8
 // (K, N), s2 (K,), b2 (K,) (the torch (out, in) layout):
 //   a1   = max_k |x[i, k]|  (fp32);  xq = clip(rint(x * 127 / max(a1,
@@ -14,19 +14,22 @@
 //   h[j] = gelu_tanh(int32(xq . W1q[j]) * (r1 * s1[j]) + b1[j])   fp32
 //   a2   = max_j |h[j]|;  hq = clip(rint(h * 127 / max(a2, 1e-20)), ...)
 //   r2   = a2 * (1/127)
-//   out[k] = int32(hq . W2q[k]) * (r2 * s2[k]) + b2[k], bf16
+//   out[k] = int32(hq . W2q[k]) * (r2 * s2[k]) + b2[k], in x's type
 // rint rounds half to even, as jnp.round does. The int32 sums are exact;
 // everything else is fp32, in the JAX kernel's order (no contraction into
 // FMAs), so kernel and plain version agree to the bit where their tanhf
-// does.
+// does. x's type touches only the quantize launch's loads and fc2's stores:
+// from the quantized x on, bf16 and fp32 run the same code.
 //
 // What bounds it on an H100: operations. It does 2 * M * K * N * 2 int8
 // operations -- 2.10e11 at M = 12544 (ViT-L b8 trunk, K = 1024, N =
 // 4096), 0.106 ms at 1,979 TOP/s dense int8 -- and its IO is x and out in
-// bf16 plus 8 MiB of weights, 59.8 MB (0.018 ms at 3.35 TB/s).
+// bf16 plus 8 MiB of weights, 59.8 MB (0.018 ms at 3.35 TB/s; in fp32
+// 111.2 MB, 0.033 ms).
 //
 // Design: three launches on the stream, all sm_90a.
-//   (1) quantize: one warp per row writes xq (M, K) int8 and r1.
+//   (1) quantize: one warp per row writes xq (M, K) int8 and r1; a lane
+//       reads 8 elements a step (one 16-byte load in bf16, two in fp32).
 //   (2) fc1: a thread-block cluster of 8 CTAs per 64-row block of x; CTA r
 //       owns hidden columns [512 r, 512 r + 512). Two consumer warpgroups
 //       each hold a m64n256 int32 accumulator (128 registers a thread) fed
@@ -46,7 +49,7 @@
 //       columns per CTA (two consumer warpgroups of m64n256k32, a 4-stage
 //       TMA ring), or 128 columns (m64n128k32) where 256-column tiles would
 //       not fill two waves of SMs (the b1 shapes); dequantization + bias on
-//       the fragments, bf16 stores.
+//       the fragments, stores in x's type.
 // Why the int8 hidden codes go through L2 instead of staying on chip: an
 // fc2 output row spans all 1024 columns, and its int32 accumulators for a
 // 64-row block are 256 KiB -- more than the registers or the shared memory
@@ -105,37 +108,50 @@ __device__ __forceinline__ void consumer_bar() {
 
 constexpr int Q_WARPS = 8;
 
+// elements [k, k + 8) of a row as four fp32 pairs
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float2 (&f)[4]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __bfloat1622float2(h[i]);
+}
+__device__ __forceinline__ void load8(const float* p, float2 (&f)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = make_float2(a.x, a.y);
+  f[1] = make_float2(a.z, a.w);
+  f[2] = make_float2(b.x, b.y);
+  f[3] = make_float2(b.z, b.w);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(Q_WARPS * 32)
-quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
+quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
              float* __restrict__ row1, int M, int K) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * Q_WARPS + (threadIdx.x >> 5);
   if (row >= M) return;
-  const __nv_bfloat16* xr = x + (size_t)row * K;
+  const T* xr = x + (size_t)row * K;
   float amax = 0.0f;
   for (int k = 8 * lane; k < K; k += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+    float2 f[4];
+    load8(xr + k, f);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(p[i]);
-      amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-    }
+    for (int i = 0; i < 4; ++i)
+      amax = fmaxf(amax, fmaxf(fabsf(f[i].x), fabsf(f[i].y)));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float inv = 127.0f / fmaxf(amax, 1e-20f);
   for (int k = 8 * lane; k < K; k += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+    float2 f[4];
+    load8(xr + k, f);
     uint32_t w[2] = {0u, 0u};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(p[i]);
-      w[i / 2] |= ((uint32_t)(uint8_t)quant(f.x, inv) << (16 * (i % 2))) |
-                  ((uint32_t)(uint8_t)quant(f.y, inv) << (16 * (i % 2) + 8));
-    }
+    for (int i = 0; i < 4; ++i)
+      w[i / 2] |= ((uint32_t)(uint8_t)quant(f[i].x, inv) << (16 * (i % 2))) |
+                  ((uint32_t)(uint8_t)quant(f[i].y, inv) << (16 * (i % 2) + 8));
     *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) = make_uint2(w[0], w[1]);
   }
   if (lane == 0) row1[row] = amax * (1.0f / 127.0f);
@@ -343,13 +359,20 @@ __device__ __forceinline__ void wgmma_fc2<256>(int (&d)[128], uint64_t da,
   wgmma_m64n256k32_s8(d, da, db, acc);
 }
 
-template <int BN>
+// two adjacent outputs in the output type
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <int BN, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 fc2_kernel(const __grid_constant__ CUtensorMap tm_hq,
            const __grid_constant__ CUtensorMap tm_w2,
            const float* __restrict__ row2, const float* __restrict__ s2,
-           const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-           int M, int K) {
+           const float* __restrict__ b2, T* __restrict__ out, int M, int K) {
   constexpr int STAGE = f2_stage<BN>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -427,35 +450,33 @@ fc2_kernel(const __grid_constant__ CUtensorMap tm_hq,
       const float sa = s2[c], sb = s2[c + 1];
       const float ba = b2[c], bb = b2[c + 1];
       if (ra < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)ra * K + c) =
-            __floats2bfloat162_rn(
-                __fadd_rn(__fmul_rn((float)acc[4 * j], __fmul_rn(r2a, sa)), ba),
-                __fadd_rn(__fmul_rn((float)acc[4 * j + 1], __fmul_rn(r2a, sb)),
-                          bb));
+        store2(out + (size_t)ra * K + c,
+               __fadd_rn(__fmul_rn((float)acc[4 * j], __fmul_rn(r2a, sa)), ba),
+               __fadd_rn(__fmul_rn((float)acc[4 * j + 1], __fmul_rn(r2a, sb)),
+                         bb));
       if (ra + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(ra + 8) * K + c) =
-            __floats2bfloat162_rn(
-                __fadd_rn(__fmul_rn((float)acc[4 * j + 2], __fmul_rn(r2b, sa)),
-                          ba),
-                __fadd_rn(__fmul_rn((float)acc[4 * j + 3], __fmul_rn(r2b, sb)),
-                          bb));
+        store2(out + (size_t)(ra + 8) * K + c,
+               __fadd_rn(__fmul_rn((float)acc[4 * j + 2], __fmul_rn(r2b, sa)),
+                         ba),
+               __fadd_rn(__fmul_rn((float)acc[4 * j + 3], __fmul_rn(r2b, sb)),
+                         bb));
     }
   }
 }
 
-template <int BN>
+template <int BN, typename T>
 int launch_fc2(const CUtensorMap& m_hq, const CUtensorMap& m_w2,
                const void* row2, const void* s2, const void* b2, void* out,
                int M, int K, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      fc2_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fc2_kernel<BN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       f2_smem<BN>());
   if (err != cudaSuccess) return (int)err;
-  fc2_kernel<BN><<<dim3(K / BN, (M + F2_ROWS - 1) / F2_ROWS), THREADS,
-                   f2_smem<BN>(), st>>>(
+  fc2_kernel<BN, T><<<dim3(K / BN, (M + F2_ROWS - 1) / F2_ROWS), THREADS,
+                      f2_smem<BN>(), st>>>(
       m_hq, m_w2, static_cast<const float*>(row2),
       static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(out), M, K);
+      static_cast<T*>(out), M, K);
   return (int)cudaGetLastError();
 }
 
@@ -469,19 +490,23 @@ bool map_i8(CUtensorMap* map, const void* ptr, int rows, int cols,
                     box);
 }
 
+// T: the type of x and out (bf16 or fp32), both 16-byte aligned
+template <typename T>
 int launch(const void* x, const void* w1, const void* s1, const void* b1,
            const void* w2, const void* s2, const void* b2, void* out,
            void* xq, void* row1, void* hq, void* row2, int M, int K, int N,
            cudaStream_t st) {
-  if (N != HIDDEN || K % F2_BOX || M < 1) return (int)cudaErrorInvalidValue;
+  if (N != HIDDEN || K % F2_BOX || M < 1 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap m_xq, m_w1, m_hq, m_w2;
   if (!map_i8(&m_xq, xq, M, K, F1_ROWS) ||
       !map_i8(&m_w1, w1, N, K, SLICE / 2) ||
       !map_i8(&m_hq, hq, M, N, F2_ROWS) || !map_i8(&m_w2, w2, K, N, F2_BOX))
     return (int)cudaErrorInvalidValue;
 
-  quant_kernel<<<(M + Q_WARPS - 1) / Q_WARPS, Q_WARPS * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
+  quant_kernel<T><<<(M + Q_WARPS - 1) / Q_WARPS, Q_WARPS * 32, 0, st>>>(
+      static_cast<const T*>(x), static_cast<int8_t*>(xq),
       static_cast<float*>(row1), M, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -500,8 +525,8 @@ int launch(const void* x, const void* w1, const void* s1, const void* b1,
   // ones, where there are enough of them to fill two waves of SMs
   const bool wide = K % 256 == 0 &&
                     (K / 256) * ((M + F2_ROWS - 1) / F2_ROWS) >= 2 * sm_count();
-  return wide ? launch_fc2<256>(m_hq, m_w2, row2, s2, b2, out, M, K, st)
-              : launch_fc2<128>(m_hq, m_w2, row2, s2, b2, out, M, K, st);
+  return wide ? launch_fc2<256, T>(m_hq, m_w2, row2, s2, b2, out, M, K, st)
+              : launch_fc2<128, T>(m_hq, m_w2, row2, s2, b2, out, M, K, st);
 }
 
 }  // namespace
@@ -514,8 +539,18 @@ int int8_mlp_bf16(const void* x, const void* w1, const void* s1,
                   const void* b1, const void* w2, const void* s2,
                   const void* b2, void* out, void* xq, void* row1, void* hq,
                   void* row2, int M, int K, int N, void* stream) {
-  return launch(x, w1, s1, b1, w2, s2, b2, out, xq, row1, hq, row2, M, K, N,
-                static_cast<cudaStream_t>(stream));
+  return launch<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, out, xq, row1, hq,
+                               row2, M, K, N,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// the same with x and out fp32
+int int8_mlp_fp32(const void* x, const void* w1, const void* s1,
+                  const void* b1, const void* w2, const void* s2,
+                  const void* b2, void* out, void* xq, void* row1, void* hq,
+                  void* row2, int M, int K, int N, void* stream) {
+  return launch<float>(x, w1, s1, b1, w2, s2, b2, out, xq, row1, hq, row2, M,
+                       K, N, static_cast<cudaStream_t>(stream));
 }
 
 const char* int8_mlp_error_string(int code) {

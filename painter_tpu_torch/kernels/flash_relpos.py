@@ -57,14 +57,19 @@ GENERIC_HEAD_DIMS = (16, 32, 64, 128)
 # bytes per (kh + kw) entry beside ~129 KiB of Q and the K / V ring, under
 # the 227 KB a block may use
 MAX_REL_ENTRIES = 190
-# the bf16 backward's dq kernel keeps its 128 rows' rel terms and d rel_h
-# sums as fp32 pairs: 1 KiB per entry beside ~94 KiB of Q, dO, the K / V
-# ring and the expanders
-BWD_MAX_REL_ENTRIES = 110
 # the bf16 backward forms d rel_w from one-hot key -> column expanders of
 # at most 40 columns, and d rel_h from the <= 8 grid rows a 64-key tile
 # touches (kw >= 10)
 BWD_BF16_KW = (10, 40)
+# the bf16 backward's dq kernel stages its 128 rows' raw bf16 rel_h and
+# rel_w in two 16 KiB ring stages before the first K / V tile
+# (csrc/flash_relpos_bwd.cu: raw_stage_bytes <= RAW_STAGE_ROOM, 2 x (128
+# (kh + kw) + 16) bytes and the alignment of rel_w's block within 32,768),
+# so kh + kw <= 127. No other layout binds first: at kh + kw <= 127 the
+# bf16 dq kernel takes at most 221,184 B, its dk/dv kernel 136,192 B and
+# the fp32 kernels 169,472 / 172,288 B, under the 232,448 B a block may
+# opt into. The launchers refuse any grid their own byte counts exceed.
+BWD_MAX_REL_ENTRIES = 127
 _FWD_FUNCS = {torch.bfloat16: "flash_relpos_fwd_bf16",
               torch.float32: "flash_relpos_fwd_f32"}
 _BWD_FUNCS = {torch.bfloat16: "flash_relpos_bwd_bf16",
@@ -130,10 +135,11 @@ def attention_route(hd: int, k_size: Tuple[int, int], length: int,
     """The kernel a shape goes to on the card, by its shape alone.
 
     ``"vitl"``: the ViT-L kernels (K1 / K2) -- head_dim 64 within their
-    rel-term limits (K1: kh + kw <= 190; K2: kh + kw <= 110 and, in bf16,
-    kw in [10, 40]). ``"generic"``: K1g / K2g, every other shape of the
-    JAX kernel's domain ``hd + min(kh, kw) <= 128``. Raises outside it,
-    with the message of the JAX kernel's ``_fold_axis``.
+    rel-term limits (K1: kh + kw <= 190; K2: kh + kw <= 127, the raw
+    rel-term staging of its bf16 dq kernel, in both types, and in bf16 kw
+    in [10, 40]). ``"generic"``: K1g / K2g, every other shape of the JAX
+    kernel's domain ``hd + min(kh, kw) <= 128``. Raises outside it, with
+    the message of the JAX kernel's ``_fold_axis``.
     """
     if dtype not in _FWD_FUNCS:
         raise TypeError(f"flash_relpos takes bf16 or fp32, got {dtype}")

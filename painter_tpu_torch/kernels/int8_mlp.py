@@ -5,19 +5,20 @@ Hand-written CUDA kernels replace the TPU kernel of
 quantization of x, the int8 fc1 product, dequantization + bias, tanh
 GELU, per-row requantization from the fp32 hidden activation, the int8
 fc2 product, dequantization + bias. ``csrc/int8_mlp.cu`` (K5) serves the
-ViT-L shapes: the fp32 hidden activation stays on the SM (its row maxima
-are exchanged across a thread-block cluster), and only its int8 codes
-pass to fc2 through a scratch tensor. ``csrc/int8_mlp_generic.cu`` (K5g)
-serves every other shape and fp32 x: four launches (quantize, fc1 with
-the GELU into an fp32 hidden scratch, requantize, fc2). Their headers
+ViT-L widths in bf16 and fp32: the fp32 hidden activation stays on the SM
+(its row maxima are exchanged across a thread-block cluster), and only
+its int8 codes pass to fc2 through a scratch tensor.
+``csrc/int8_mlp_generic.cu`` (K5g) serves every other shape: four
+launches (quantize, fc1 with the GELU into an fp32 hidden scratch,
+requantize, fc2). Their headers
 state the contracts, the bound on an H100 and what the designs do about
 it. The TPU kernel's row-block choice (``default_block_m``) is a layout
 device and is not carried over.
 
 Routes. :func:`int8_mlp_route` picks the kernel by shape and type alone:
-``"vitl"`` (K5) for bf16 x with N = 4096 hidden and K a multiple of 128,
-``"generic"`` (K5g) for every other K >= 1 and N >= 1, in bf16 or fp32 --
-the shapes and types the JAX kernel takes (x in bf16 or fp32, output in
+``"vitl"`` (K5) for N = 4096 hidden and K a multiple of 128, ``"generic"``
+(K5g) for every other K >= 1 and N >= 1, each in bf16 or fp32 -- the
+shapes and types the JAX kernel takes (x in bf16 or fp32, output in
 x's type). :func:`int8_mlp` dispatches on the device: a CPU tensor runs
 :func:`int8_mlp_reference`, a CUDA tensor launches the routed kernel or
 raises. ``int8_mlp.launches`` counts K5's launches,
@@ -45,6 +46,7 @@ from painter_tpu_torch.kernels import build
 HIDDEN = 4096
 _K_STEP = 128
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_K5_FUNCS = {torch.bfloat16: "int8_mlp_bf16", torch.float32: "int8_mlp_fp32"}
 
 
 def int_mm_takes(m: int, k: int, n: int) -> bool:
@@ -105,14 +107,14 @@ def int8_mlp_reference(x, w1q, s1, b1, w2q, s2, b2):
 
 def int8_mlp_route(k: int, n: int, dtype: torch.dtype) -> str:
     """The kernel an MLP of width K and hidden width N takes on the card,
-    by its shape and x's type alone: ``"vitl"`` (K5) for bf16 with N =
-    4096 and K a multiple of 128, ``"generic"`` (K5g) for every other
-    K >= 1, N >= 1 in bf16 or fp32. Raises on other types."""
+    by its shape alone, x in bf16 or fp32: ``"vitl"`` (K5) for N = 4096
+    and K a multiple of 128, ``"generic"`` (K5g) for every other K >= 1,
+    N >= 1. Raises on other types."""
     if dtype not in _DTYPES:
         raise TypeError(f"int8_mlp takes bf16 or fp32 x, got {dtype}")
     if k < 1 or n < 1:
         raise ValueError(f"int8_mlp takes K, N >= 1, got K={k}, N={n}")
-    if dtype == torch.bfloat16 and n == HIDDEN and k % _K_STEP == 0:
+    if n == HIDDEN and k % _K_STEP == 0:
         return "vitl"
     return "generic"
 
@@ -156,8 +158,11 @@ def _check(x, w1q, w2q) -> str:
 
 
 def _operands(x, w1q, s1, b1, w2q, s2, b2):
-    """x as (M, K), the weights contiguous, the four row vectors fp32."""
+    """x as (M, K) at a 16-byte aligned address, the weights contiguous,
+    the four row vectors fp32."""
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
     vecs = [v.to(device=x.device, dtype=torch.float32).contiguous()
             for v in (s1, b1, s2, b2)]
     return x2, w1q.contiguous(), w2q.contiguous(), vecs
@@ -187,7 +192,7 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2):
     hq = torch.empty((m, n), dtype=torch.int8, device=x.device)
     rows = torch.empty((2, m), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel_fn("int8_mlp", "int8_mlp_bf16", 12, 3)(
+    rc = _kernel_fn("int8_mlp", _K5_FUNCS[x.dtype], 12, 3)(
         x2.data_ptr(), w1c.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
         w2c.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
         out.data_ptr(), xq.data_ptr(), rows[0].data_ptr(), hq.data_ptr(),

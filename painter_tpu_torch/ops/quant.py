@@ -15,9 +15,9 @@ gradient flows through ``round``.
 :func:`mlp` runs the fused w8a8 kernel
 (:mod:`painter_tpu_torch.kernels.int8_mlp`) when the block's ``mlp_impl``
 is ``"fused"`` and the config's GELU is the tanh one (the kernel's),
-whatever the compute type: bf16 x at the ViT-L widths (hidden 4096, K a
-multiple of 128) takes K5, every other width and fp32 x (a
-``dtype="float32", gelu="tanh"`` config) K5g (``int8_mlp_route``).
+whatever the compute type: x at the ViT-L widths (hidden 4096, K a
+multiple of 128) takes K5, in bf16 and in fp32 (a ``dtype="float32",
+gelu="tanh"`` config), every other width K5g (``int8_mlp_route``).
 Exact-GELU configs -- fp32 with the default ``gelu="auto"`` -- take the
 unfused path, as the JAX package's ``mlp`` dispatches on the config. On a
 CUDA tensor ``"fused"`` launches the routed kernel or raises. The unfused

@@ -267,9 +267,11 @@ def test_bwd_kernel_input_checks(change, match):
 
 
 def test_bwd_rel_entries_limit():
-    """The ViT-L K2 takes kh + kw <= 110 rel-term entries; past it, a
-    grid of the JAX kernel's domain goes to K2g (80x40, the trainer at
-    --input_size 1280 640), and one outside it raises the JAX message."""
+    """The ViT-L K2 takes a grid up to kh + kw = 127, where its bf16 dq
+    kernel's raw rel-term staging fills its two 16 KiB ring stages: 80x40
+    (the trainer at --input_size 1280 640, 120 rel-term entries) fits;
+    90x45 (135) goes to K2g; a grid outside the JAX kernel's domain raises
+    the JAX message."""
     kw = _bwd_kernel_args()
     fr._check(kw["q"], kw["k"], kw["v"], kw["rel_h"], kw["rel_w"],
               kw["k_size"], out=kw["out"], dout=kw["dout"], lse=kw["lse"])
@@ -279,7 +281,9 @@ def test_bwd_rel_entries_limit():
         assert fr.attention_route(64, (70, 40), 2800, dtype,
                                   backward=True) == "vitl"  # 110
         assert fr.attention_route(64, (80, 40), 3200, dtype,
-                                  backward=True) == "generic"  # 120
+                                  backward=True) == "vitl"  # 120
+        assert fr.attention_route(64, (90, 45), 4050, dtype,
+                                  backward=True) == "generic"  # 135
         with pytest.raises(ValueError, match="rel table 65 exceeds"):
             fr.attention_route(64, (65, 65), 65 * 65, dtype, backward=True)
 

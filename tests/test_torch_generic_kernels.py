@@ -6,9 +6,9 @@ at any width the presets give); the ViT-L shapes keep the ViT-L kernels;
 the width-generic kernels' transforms (head-dim zero-padding, channel
 padding with LayerNorm over the real C, per-tile partial sums) on the
 plain versions; and the models whose shapes reach the generic kernels on
-the card -- tiny_test (global, and windowed with kw = 2) and a narrow
-head_dim-64 model on the 80x40 grid of ``--input_size 1280 640`` --
-through the port against the JAX package on the same seeded numpy
+the card -- tiny_test (global, and windowed with kw = 2) -- and a narrow
+head_dim-64 model on the 80x40 grid of ``--input_size 1280 640`` (K1 and
+K2 on the card) through the port against the JAX package on the same seeded numpy
 weights and inputs (fp32: forward 1e-4, loss 1e-5 relative, each
 gradient 1e-4 x its own max abs, as tests/test_torch_train.py holds
 them).
@@ -107,13 +107,14 @@ def test_attention_route_domain_edges(shape, inside):
     ((56, 28), "vitl", "vitl"),      # 896x448
     ((70, 35), "vitl", "vitl"),      # 1120x560 (COCO eval)
     ((14, 14), "vitl", "vitl"),      # windows of the windowed preset
-    ((80, 40), "vitl", "generic"),   # 1280x640: K2's 110 entries exceeded
-    ((90, 45), "vitl", "generic"),   # 1440x720, L = 4050
+    ((80, 40), "vitl", "vitl"),      # 1280x640: fits K2's layouts
+    ((90, 45), "vitl", "generic"),   # 1440x720, L = 4050: past them
     ((95, 95), "vitl", None),        # K1's own limit, past the JAX domain
 ])
 def test_vitl_shapes_keep_their_routes(grid, fwd, bwd):
-    """head_dim 64: every shape the ViT-L kernels took keeps them; K2's
-    past-limit grids go to K2g; a grid neither takes raises."""
+    """head_dim 64: every shape the ViT-L kernels took keeps them, and
+    K2 takes 80x40 too; grids past K2's shared-memory layouts go to K2g;
+    a grid neither takes raises."""
     length = grid[0] * grid[1]
     for dtype in DTYPES:
         assert fr.attention_route(64, grid, length, dtype) == fwd
@@ -409,7 +410,7 @@ def test_models_reaching_generic_kernels_match_jax(monkeypatch, name,
     training forward (drop-path 0, fp32, remat) == the JAX model's
     (``jax.value_and_grad``, XLA attention); the attention shapes the
     port runs are the ones the card routes to K1g / K2g (grid80x40: K1 and
-    K2g)."""
+    K2, the ViT-L kernels, at the grid of --input_size 1280 640)."""
     cfg_j, cfg_t, params = _model_pair(name, seed=5)
     n = 1 if name == "grid80x40" else 2
     imgs, tgts, mask = stitched_batch(cfg_j, n, seed=6)
@@ -457,7 +458,7 @@ def test_models_reaching_generic_kernels_match_jax(monkeypatch, name,
                 (pname, err)
     for hd, grid in routes:
         length = grid[0] * grid[1]
-        want = ("vitl", "generic") if name == "grid80x40" else (
+        want = ("vitl", "vitl") if name == "grid80x40" else (
             "generic", "generic")
         assert (fr.attention_route(hd, grid, length, torch.bfloat16),
                 fr.attention_route(hd, grid, length, torch.bfloat16,

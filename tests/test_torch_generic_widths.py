@@ -1,8 +1,8 @@
 """PyTorch port: K5 and the decoder tail at every width the JAX kernels
 take, on the CPU.
 
-``int8_mlp_route`` keeps every shape K5 took and sends the rest (and fp32
-x) to K5g; K5's plain version against the JAX Pallas kernel in interpret
+``int8_mlp_route`` keeps every shape K5 took, gives it fp32 x at its
+widths too, and sends the rest to K5g; K5's plain version against the JAX Pallas kernel in interpret
 mode at the JAX test's shapes and at odd widths, in bf16 and fp32; K5g's
 decomposition (K padded with zero codes to its 32-byte depth step, the
 fp32 hidden scratch, the separate requantization) bit for bit against the
@@ -80,21 +80,27 @@ def _mlp_args(m, k, n, seed, dtype, zero_rows=()):
 # K5 / K5g routes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k", [128, 256, 768, 1024, 2048])
-def test_int8_mlp_route_keeps_every_k5_shape(k):
-    """bf16, hidden 4096, K a multiple of 128: the shapes K5 took."""
-    assert k5.int8_mlp_route(k, k5.HIDDEN, torch.bfloat16) == "vitl"
+@pytest.mark.parametrize("k,dtype", [
+    pytest.param(k, dt, id=str(k) if dt == torch.bfloat16 else f"{k}-fp32")
+    for k in (128, 256, 768, 1024, 2048)
+    for dt in (torch.bfloat16, torch.float32)])
+def test_int8_mlp_route_keeps_every_k5_shape(k, dtype):
+    """Hidden 4096, K a multiple of 128: the shapes K5 took in bf16, and
+    takes in fp32 too (ViT-L's 1024 -> 4096 among them)."""
+    assert k5.int8_mlp_route(k, k5.HIDDEN, dtype) == "vitl"
 
 
+# each case keeps the id it had before fp32 (1024, 4096) moved to K5
 @pytest.mark.parametrize("k,n,dtype", [
-    (128, 256, torch.bfloat16), (32, 128, torch.bfloat16),
-    (40, 136, torch.bfloat16), (768, 3072, torch.bfloat16),
-    (1000, 4096, torch.bfloat16), (1, 1, torch.bfloat16),
-    (1024, 4096, torch.float32), (128, 256, torch.float32),
-    (32, 128, torch.float32), (40, 136, torch.float32)])
+    pytest.param(k, n, dt, id=f"{k}-{n}-dtype{i}") for i, k, n, dt in [
+        (0, 128, 256, torch.bfloat16), (1, 32, 128, torch.bfloat16),
+        (2, 40, 136, torch.bfloat16), (3, 768, 3072, torch.bfloat16),
+        (4, 1000, 4096, torch.bfloat16), (5, 1, 1, torch.bfloat16),
+        (7, 128, 256, torch.float32), (8, 32, 128, torch.float32),
+        (9, 40, 136, torch.float32)]])
 def test_int8_mlp_route_sends_the_rest_to_k5g(k, n, dtype):
-    """The JAX test's shape, tiny_test's, odd widths, other hidden widths
-    and every fp32 shape (ViT-L's too) go to K5g."""
+    """The JAX test's shape, tiny_test's, odd widths and other hidden
+    widths go to K5g, in either type."""
     assert k5.int8_mlp_route(k, n, dtype) == "generic"
 
 
