@@ -88,6 +88,10 @@ from painter_tpu_torch.utils.cuda_timing import device_ms, event_ms
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak, same sheet
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (scalar FMA)
+# dense TF32 tensor-core peak, same sheet. An fp32-accurate product takes
+# three TF32 products (3xTF32: big and small tf32 parts of each operand),
+# so the least time for fp32 attention is 3 x FLOP at this rate
+H100_TF32_FLOPS = 495e12
 H100_BYTES_PER_S = 3.35e12
 
 BF16, FP32 = (torch.bfloat16,), (torch.bfloat16, torch.float32)
@@ -126,6 +130,9 @@ K2_REFUSED_GRID = (100, 28)
 K2_KERNEL_NAMES = ("hop::dq_kernel", "hop::dkv_kernel")
 # the shape of most training-path launches (21 of 24 per micro-batch)
 K2_MAIN_SHAPE = (32, (56, 28))
+# the shape of most fp32 launches of K2: the 1280x640 update at b1 (21 of
+# 24 per micro-batch)
+K2_F32_MAIN_SHAPE = (16, (80, 40))
 # K2 vs plain, max abs error over max |plain| of each of dq, dk, dv,
 # d rel_h, d rel_w: bf16 rounds P and dS to 8 mantissa bits (2^-9) before
 # the three products, in other places than the plain version; fp32
@@ -209,14 +216,35 @@ def k1_case(bh, grid, dtype, seed, iters, d=64, fn=None):
     es = q.element_size()
     nbytes = (4 * bh * length * d + bh * length * sum(grid)) * es \
         + bh * length * 4
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return {"bh": bh, "grid": list(grid), "dtype": str(dtype), "hd": d,
             "max_abs_err": err, "lse_err": lse_err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "sdpa_nobias_ms": nobias_ms, "flop": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes),
+            **attention_bound(flops, nbytes, dtype)}
+
+
+def attention_bound(flops, nbytes, dtype):
+    """The least time of an attention call: bytes over the memory rate
+    or its products over the peak of their type. fp32 products take
+    three TF32 products each (3xTF32, ``H100_TF32_FLOPS``); beside it
+    ``bound_fma_ms``, the same FLOP at the fp32 FMA rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    if dtype == torch.bfloat16:
+        t_ops, fma = flops / H100_BF16_FLOPS * 1e3, None
+    else:
+        t_ops = 3 * flops / H100_TF32_FLOPS * 1e3
+        fma = max(flops / H100_FP32_FLOPS * 1e3, t_bytes)
+    return {"bound_ms": max(t_ops, t_bytes), "bound_fma_ms": fma,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _bound_note(row, dtype):
+    """The rate a row's bound_ms was taken at, for a '#' line."""
+    if dtype == torch.bfloat16:
+        return f"{row['flop']:.4e} FLOP at 989 TFLOP/s, {row['bound_by']}"
+    return (f"3 x {row['flop']:.4e} FLOP at 495 TFLOP/s TF32 (3xTF32), "
+            f"{row['bound_by']}; at the 67 TFLOP/s fp32 FMA rate "
+            f"{row['bound_fma_ms']:.4f} ms")
 
 
 def _rate(row):
@@ -239,9 +267,8 @@ def phase_k1(label):
                   f"library_ms(sdpa+bias) {row['library_ms']:.4f} "
                   f"sdpa_nobias_ms(not the same function) "
                   f"{row['sdpa_nobias_ms']:.4f} bound_ms "
-                  f"{row['bound_ms']:.4f} ({row['flop']:.4e} FLOP at "
-                  f"{'989' if dtype == torch.bfloat16 else '67'} TFLOP/s, "
-                  f"{row['bound_by']}) [{label}]")
+                  f"{row['bound_ms']:.4f} ({_bound_note(row, dtype)}) "
+                  f"[{label}]")
     return rows
 
 
@@ -314,14 +341,11 @@ def k2_case(bh, grid, dtype, seed, iters, d=64, fn=None):
     # rel gradients
     nbytes = (5 * bh * length * d + 2 * bh * length * sum(grid)
               + 3 * bh * length * d) * es + bh * length * 4
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return {"bh": bh, "grid": list(grid), "dtype": str(dtype), "hd": d,
             "max_abs_err": err, "rel_errs": rel_errs, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "sdpa_nobias_ms": nobias_ms, "flop": flops,
-            "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bytes": nbytes, **attention_bound(flops, nbytes, dtype)}
 
 
 def turns(fns, iters, rounds=2):
@@ -401,7 +425,8 @@ def phase_k2(label):
         for dtype in dtypes:
             iters = 10 if dtype == torch.bfloat16 else 2
             row = k2_case(bh, grid, dtype, seed=100 + i, iters=iters)
-            if grid == K2_1280_GRID:
+            if grid == K2_1280_GRID or (dtype == torch.float32 and (
+                    bh, grid) == K2_MAIN_SHAPE):
                 t = k2_turns(bh, grid, dtype, seed=150 + i)
                 row["turns_ms"] = t
                 print(f"# K2 vs K2g (called directly) {row['dtype']} BH={bh} "
@@ -409,6 +434,10 @@ def phase_k2(label):
                       f"K2 {', '.join(f'{x:.4f}' for x in t['K2'])} ms, K2g "
                       f"{', '.join(f'{x:.4f}' for x in t['K2g'])} ms "
                       f"[{label}]")
+                # the route sends the grid to K2: K2 must be the faster
+                check(max(t["K2"]) < min(t["K2g"]),
+                      f"K2 {dtype} at {bh}x{grid} is routed to K2 but K2g "
+                      f"was faster in turns: {t}")
             rows.append(row)
             errs = " ".join(f"{n} {e:.2e}" for n, e in row["rel_errs"].items())
             print(f"# K2 {row['dtype']} BH={bh} L={grid[0] * grid[1]} "
@@ -419,9 +448,8 @@ def phase_k2(label):
                   f"library_ms(sdpa bwd, bias grad) {row['library_ms']:.4f} "
                   f"sdpa_nobias_ms(not the same function) "
                   f"{row['sdpa_nobias_ms']:.4f} "
-                  f"bound_ms {row['bound_ms']:.4f} ({row['flop']:.4e} FLOP "
-                  f"at {'989' if dtype == torch.bfloat16 else '67'} TFLOP/s, "
-                  f"{row['bound_by']}) [{label}]")
+                  f"bound_ms {row['bound_ms']:.4f} "
+                  f"({_bound_note(row, dtype)}) [{label}]")
     k2_refusal()
     return rows
 
@@ -3575,7 +3603,8 @@ def _read_counts():
 
 
 def _attn_line(what, row, label):
-    peak = "989" if row["dtype"] == str(torch.bfloat16) else "67"
+    dtype = torch.bfloat16 if row["dtype"] == str(torch.bfloat16) \
+        else torch.float32
     errs = (" ".join(f"{n} {e:.2e}" for n, e in row["rel_errs"].items())
             + "; two runs bitwise equal") if "rel_errs" in row else \
         f"lse err {row['lse_err']:.2e}"
@@ -3586,8 +3615,7 @@ def _attn_line(what, row, label):
           f"{' bwd' if 'rel_errs' in row else ''}+bias) "
           f"{row['library_ms']:.4f} sdpa_nobias_ms(not the same function) "
           f"{row['sdpa_nobias_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
-          f"({row['flop']:.4e} FLOP at {peak} TFLOP/s, {row['bound_by']}) "
-          f"[{label}]")
+          f"({_bound_note(row, dtype)}) [{label}]")
 
 
 def phase_generic_attention(label):
@@ -4156,8 +4184,9 @@ def phase_int8_fp32_serving(label):
     forward, K5g never; each quantized output within INT8_REL_FRO of the
     fp32 one, int8-fused within FP32_FUSED_VS_INT8 of int8 and within
     FP32_FUSED_VS_PLAIN of int8-fused served with ``int8_mlp_reference``
-    in K5's place. Returns (K5 launches, seconds of a b8 call per
-    mode)."""
+    in K5's place. K1 runs on its fp32 (3xTF32) route once per block per
+    forward, K1g never; K1's device ms in one unquantized b8 call.
+    Returns (K5 launches, seconds of a b8 call per mode, K1 launches)."""
     from painter_tpu_torch import configs
     from painter_tpu_torch.infer import engine
     from painter_tpu_torch.kernels import int8_mlp as k5
@@ -4174,24 +4203,35 @@ def phase_int8_fp32_serving(label):
     img1, tgt1 = engine.build_prompt_batch(rng.rand(res, res, 3),
                                            [(img2, tgt2)])
     outs, b8_s = {}, {}
-    k5_total = 0
+    k5_total = k1_total = 0
     for quant in ("none", "int8", "int8-fused"):
         eng = engine.InContextModel(cfg, model, device="cuda", quant=quant)
         _zero_counts()
         outs[quant] = (eng.run_queries_shared(queries, img2, tgt2),
                        eng.run_one_image(img1, tgt1))
-        k5n, k5g = (c[4] for c in _read_counts())
+        (k1n, k5n), (k1g, k5g) = ((c[0], c[4]) for c in _read_counts())
         want = 2 * cfg.depth if quant == "int8-fused" else 0
         print(f"# SegGPT ViT-L fp32 tanh --quant {quant}: K5 launches "
               f"{k5n} over a b8 run_queries_shared and a b1 run_one_image "
-              f"(expected {want}), K5g {k5g}")
+              f"(expected {want}), K5g {k5g}; K1 (fp32, 3xTF32) {k1n} "
+              f"(expected {2 * cfg.depth}), K1g {k1g}")
         check(k5n == want and k5g == 0,
               f"fp32 ViT-L {quant}: K5 {k5n}, K5g {k5g}")
+        check(k1n == 2 * cfg.depth and k1g == 0,
+              f"fp32 ViT-L {quant}: K1 {k1n}, K1g {k1g}")
         k5_total += k5n
+        k1_total += k1n
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.run_queries_shared(queries, img2, tgt2)
         b8_s[quant] = time.perf_counter() - t0
+        if quant == "none":
+            k1_ms = device_ms(lambda: eng.run_queries_shared(
+                queries, img2, tgt2), 1, ("tc::fwd_kernel",))
+            print(f"# SegGPT ViT-L fp32 b8 run_queries_shared: K1 (fp32, "
+                  f"3xTF32) device time {k1_ms:.2f} ms of the "
+                  f"{1e3 * b8_s[quant]:.2f} ms call ({cfg.depth} "
+                  f"launches) [{label}]")
         del eng
     eng = engine.InContextModel(cfg, model, device="cuda",
                                 quant="int8-fused")
@@ -4225,7 +4265,7 @@ def phase_int8_fp32_serving(label):
                       for q, s in b8_s.items()) + f" [{label}]")
     del model
     torch.cuda.empty_cache()
-    return k5_total, b8_s
+    return k5_total, b8_s, k1_total
 
 
 def phase_grad_check_1280(label):
@@ -4312,6 +4352,57 @@ def train_1280_times(label):
     return ms, k2
 
 
+# K1's and K2's fp32 (3xTF32) kernels in a profile (csrc/flash_relpos_fwd.cu,
+# csrc/flash_relpos_bwd.cu)
+F32_KERNEL_NAMES = ("tc::fwd_kernel", "tc::dq_kernel", "tc::dkv_kernel")
+
+
+def train_1280_fp32_times(label):
+    """ms per update of Painter ViT-L at 1280x640 in fp32 (b1 x accum 2,
+    save_kernel, the auto tail) on a device-resident batch: the warm-up
+    update launches K1 and K2 once per block per micro-batch on their
+    fp32 (3xTF32) route and no K1g-K4g, K3 or K4; the median of 3 updates
+    after it, and K1's and K2's device ms in one profiled update. Returns
+    (ms, K1 ms, K2 ms, K1 launches, K2 launches)."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.train import optim
+    from painter_tpu_torch.train import step as step_lib
+    from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(PAINTER, dtype="float32",
+                             img_size=PAINTER_1280)
+    model = _seeded_model(cfg, 41).train()
+    opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
+        warmup_epochs=0.0, steps_per_epoch=10))
+    step = step_lib.make_train_step(cfg, opt, accum_iter=2)
+    batch = _train_batch(cfg, 1, seed=42, accum=2)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    _zero_counts()
+    _timed_updates(step, model, batch, gen, 1)
+    vitl, generic = _read_counts()
+    want = (2 * cfg.depth, 2 * cfg.depth, 0, 0, 0)
+    check(vitl == want and generic == (0,) * 5,
+          f"the fp32 1280x640 update launched {vitl} {generic}, expected "
+          f"{want} and no generic kernel")
+    times = _timed_updates(step, model, batch, gen, 3)
+    by_kernel = device_ms_by_kernel(lambda: step(model, batch, gen), 1,
+                                    F32_KERNEL_NAMES)
+    k1 = sum(v for k, v in by_kernel.items() if "fwd_kernel" in k)
+    k2 = sum(v for k, v in by_kernel.items() if "fwd_kernel" not in k)
+    ms = 1e3 * statistics.median(times)
+    print(f"# ViT-L 1280x640 update (b1 x accum 2, fp32, save_kernel, auto "
+          f"tail): {ms:.2f} ms median of {[round(1e3 * x, 2) for x in times]}"
+          f"; launches K1 {vitl[0]} / K2 {vitl[1]} (fp32, 3xTF32); device "
+          f"time in one update K1 {k1:.2f} ms ({100 * k1 / ms:.1f}%), K2 "
+          f"{k2:.2f} ms ({100 * k2 / ms:.1f}%) "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in by_kernel.items())}) "
+          f"[{label}]")
+    del model, opt
+    torch.cuda.empty_cache()
+    return ms, k1, k2, vitl[0], vitl[1]
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4328,9 +4419,9 @@ def _kernel_entry(name, replaces, launches, row, source=None):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
-def _row(rows, shape):
+def _row(rows, shape, dtype=torch.bfloat16):
     return next(r for r in rows if (r["bh"], tuple(r["grid"])) == shape
-                and r["dtype"] == str(torch.bfloat16))
+                and r["dtype"] == str(dtype))
 
 
 def main():
@@ -4397,11 +4488,13 @@ def main():
                                phase_tiny_wide_decoder, label)
     (vw_k3g, vw_k4g), _, _ = timed("ViT-L 896x448 wide decoder training",
                                    phase_vitl_wide_decoder, label)
-    fp32_k5, _ = timed("SegGPT ViT-L fp32 int8 serving",
-                       phase_int8_fp32_serving, label)
+    fp32_k5, _, fp32_serve_k1 = timed("SegGPT ViT-L fp32 int8 serving",
+                                      phase_int8_fp32_serving, label)
     timed("gradient check 1280x640", phase_grad_check_1280, label)
     t1280 = timed("training drive 1280x640", phase_train_1280, label)
     timed("training times 1280x640", train_1280_times, label)
+    *_, f32_k1, f32_k2 = timed("fp32 training times 1280x640",
+                               train_1280_fp32_times, label)
     infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1 + \
         dp_k1
     dist_k = (remat_k1 + nccl_k1 + gloo_k1 + fe_k1 + tools_k1,
@@ -4423,7 +4516,9 @@ def main():
           f"path {serve_k5}, CLI --quant int8-fused {cli_k5}, eval "
           f"--quant int8-fused {eval_k5}, SegGPT ViT-L fp32 int8-fused "
           f"serving {fp32_k5}; ViT-L 1280x640 training (K1, "
-          f"K2, K3, K4) {t1280}; tiny_test: K1g serving {tiny_k1g}, "
+          f"K2, K3, K4) {t1280}; fp32 (3xTF32) K1: SegGPT ViT-L fp32 "
+          f"serving {fp32_serve_k1}, 1280x640 fp32 update {f32_k1}; fp32 "
+          f"K2: 1280x640 fp32 update {f32_k2}; tiny_test: K1g serving {tiny_k1g}, "
           f"training (K1g, K2g, K3g, K4g) {tiny_gen}, decoder "
           f"{WIDE_DECODER} training (tensor-core K3g, K4g) ({wide_k3g}, "
           f"{wide_k4g}); ViT-L 896x448 decoder {WIDE_VITL_DECODER} training "
@@ -4458,6 +4553,15 @@ def main():
                       "painter_tpu/kernels/flash_relpos.py:438",
                       train_k2 + dist_k[1] + t1280[1],
                       _row(k2_rows, K2_MAIN_SHAPE)),
+        _kernel_entry("flash_relpos_fwd_f32",
+                      "painter_tpu/kernels/flash_relpos.py:399",
+                      fp32_serve_k1 + f32_k1,
+                      _row(k1_rows, K1_MAIN_SHAPE, torch.float32),
+                      "flash_relpos_fwd"),
+        _kernel_entry("flash_relpos_bwd_f32",
+                      "painter_tpu/kernels/flash_relpos.py:438", f32_k2,
+                      _row(k2_rows, K2_F32_MAIN_SHAPE, torch.float32),
+                      "flash_relpos_bwd"),
         _kernel_entry("decoder_tail_fwd",
                       "painter_tpu/kernels/decoder_head.py:180",
                       train_k3 + dist_k[2] + t1280[2], tail["K3"]),

@@ -79,24 +79,58 @@
 // forced to 0 for keys and queries past L, so zero-filled rows never put
 // NaN or garbage into a sum.
 //
-// The fp32 instantiation is scalar code (the logits through fp32 shared
-// buffers, FMAs, synchronous loads) and sums the rel-bias gradients from
-// the fp32 dS: it exists for tight comparisons, not speed.
+// fp32 design (sm_90a, namespace tc): the same two kernels, deterministic,
+// on 3xTF32 wgmma (flash_relpos_tf32.cuh: every operand split into big +
+// small tf32 parts, three products with fp32 accumulation). Bound on an
+// H100: 10 * BH * L^2 * 64 FLOP three times over at 495 TFLOP/s: 0.305 ms
+// at BH = 32, L = 1568 (against 0.752 ms for fp32 FMAs at 67). wgmma reads
+// tf32 from shared memory K-major only, so every product whose summed
+// index runs down a tile in memory reads a transposed copy (K^T in (a),
+// Q^T and dO^T in (b)), written by the producer warpgroup in the pass that
+// splits the tile, with that index in perm_col order: S's and dP's
+// accumulators are then the A fragments of the next products as they are.
+// A producer warpgroup (setmaxnreg 40) loads tiles with 16-byte loads, a
+// few in flight a thread (the split goes through registers, so TMA would
+// add only a raw copy), into rings of 2 stages; the consumer warpgroups
+// (setmaxnreg 232) hold one side's rows as split A fragments in registers
+// (Q in (a), K in (b)) and the other in shared memory, split once per CTA
+// (dO in (a), V in (b)). dq, dk and dv take each tile's product in a
+// zeroed accumulator and sum the tiles in registers with rounded adds: the
+// tensor cores' fp32 accumulation truncates, so sums kept in them over the
+// loop drift toward zero (~3e-5 relative over the tiles of L 1568).
+//   (a) dq kernel: key tiles of whole key-grid rows, R = F32_TILE_MAX / kw
+//       rows, NT = R * kw rounded up to 8 columns. A tile position keeps
+//       its grid column in every tile, so d rel_w sums per position in
+//       registers across the loop and is folded over the R rows once at
+//       the end (through shared memory, in order); d rel_h of the tile's
+//       grid rows is complete in the tile, a quad's shuffle sums written
+//       once. The rel terms are read from global memory (L1 / L2) as dS
+//       is formed. kw <= F32_TILE_MAX = 48 (kernels/flash_relpos.py
+//       BWD_F32_KW_MAX).
+//   (b) dk/dv kernel: query tiles of 32, each stage holding Q, dO, Q^T and
+//       dO^T split and the tile rows' raw rel_h, rel_w, lse and delta. It
+//       reads nothing (a) writes, so it goes by programmatic dependent
+//       launch: its CTAs take the SMs (a)'s last wave leaves idle (each
+//       grid is ~3 waves of 132 SMs at 80x40 BH 16, 56x28 BH 32: 11-14%
+//       of K2's time), and it waits for (a)'s grid only at its end.
 //
-// Which key grids it takes: those its shared-memory layouts fit. Every
-// per-row buffer is sized by kh and kw, and the launchers refuse
-// (cudaErrorInvalidValue) a (kh, kw) whose bytes exceed SMEM_OPTIN, the
-// 227 KiB a block may opt into on an H100 (or, for the bf16 dq kernel's
-// raw rel-term staging, the two ring stages it borrows). The reckonings
-// are the functions dq_smem_bytes / raw_stage_bytes / dkv_smem_bytes of
-// each namespace. The staging binds first, at kh + kw <= 127, which is
-// the route's one limit (kernels/flash_relpos.py BWD_MAX_REL_ENTRIES); a
-// launch past these figures raises. At the 80x40 grid of 1280x640 the
-// bf16 dq kernel takes 199,168 B (its rel pairs and d rel_h pairs are
-// 512 B per kh + kw + 1 and per kh), the staging 30,752 of 32,768 B, the
-// dk/dv kernel 133,120 B; the fp32 kernels take 165,888 and 150,784 B. No
-// register array is sized by kh or kw; the bf16 d rel_w accumulator is
-// KW_MAX = 40 columns.
+// Which key grids it takes: those its shared-memory layouts fit. The
+// launchers refuse (cudaErrorInvalidValue) a (kh, kw) whose bytes exceed
+// SMEM_OPTIN, the 227 KiB a block may opt into on an H100 (or, for the
+// bf16 dq kernel's raw rel-term staging, the two ring stages it borrows).
+// The reckonings are dq_smem_bytes / raw_stage_bytes / dkv_smem_bytes
+// (bf16) and dq_smem_f32 / dkv_smem_f32 (fp32). The bf16 staging binds
+// first, at kh + kw <= 127, which is the route's limit in both types
+// (kernels/flash_relpos.py BWD_MAX_REL_ENTRIES); a launch past these
+// figures raises. At the 80x40 grid of 1280x640 the bf16 dq kernel takes
+// 199,168 B (its rel pairs and d rel_h pairs are 512 B per kh + kw + 1 and
+// per kh), the staging 30,752 of 32,768 B, the dk/dv kernel 133,120 B; the
+// fp32 kernels take 214,080 B (NT = 40) and 229,056 B, at 56x28 164,928 B
+// (NT = 32) and 219,840 B. The fp32 dq kernel's bytes do not depend on
+// kh + kw (230,464 B at NT = 48); its dk/dv kernel's raw rel blocks take
+// 128 B per kh + kw and stage, 230,848 B at kh + kw = 127. No register
+// array is sized by kh or kw; the bf16 d rel_w accumulator is KW_MAX = 40
+// columns, the fp32 one NT / 2 registers.
 //
 // The launcher allocates nothing and does not synchronize; it returns
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -106,332 +140,617 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_relpos_common.cuh"
+#include "flash_relpos_tf32.cuh"
 
 namespace {
 
 constexpr int D = 64;    // head dim
-constexpr int BT = 64;   // rows of every tile (queries or keys)
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int WROWS = BT / WARPS;  // rows per warp (16)
+constexpr int BT = 64;   // rows of every bf16 tile (queries or keys)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr size_t SMEM_OPTIN = 232448;  // dynamic shared memory of a block
 
-// the number of kh bins (key-grid rows) that keys [k0, kend) touch
-__device__ __forceinline__ int bins_touched(int k0, int kend, int kw) {
-  return (kend - 1) / kw - k0 / kw + 1;
-}
-
-int max_bins(int kh, int kw) {
-  return kh < (BT - 1) / kw + 2 ? kh : (BT - 1) / kw + 2;
-}
-
 // ---------------------------------------------------------------------------
-// fp32: scalar reference-grade kernels
+// fp32: 3xTF32 wgmma, warp-specialized
 // ---------------------------------------------------------------------------
 
-namespace f32 {
+namespace tc {
 
-constexpr int LD = D + 4;   // row stride of every tile / buffer
-static_assert(BT == D, "the fp32 buffers hold both 64-key and 64-dim rows");
+using namespace tf32x3;
 
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int L, int tid) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = tid; i < BT * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 4;
-    const int gr = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < L) val = *reinterpret_cast<const float4*>(src + (size_t)gr * D + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
+constexpr int F32_THREADS = 384;    // warpgroups 0, 1 consume; 2 produces
+constexpr int F32_CONSUMERS = 256;
+constexpr int F32_PRODUCERS = F32_THREADS - F32_CONSUMERS;
+constexpr int F32_STAGES = 2;
+
+// (a) dq, d rel_h and d rel_w: one CTA per (128 query rows, bh). Its key
+// tiles are whole rows of the key grid: R = F32_TILE_MAX / kw grid rows
+// (R * kw keys) in a tile of NT = R * kw rounded up to 8 columns. So a
+// position of the tile has the same grid column in every tile: d rel_w
+// sums in registers, per position, across the loop (folded over the R
+// rows at the end), and d rel_h of the tile's R grid rows is complete in
+// the tile (a quad's sums, written once). Warpgroup 2 produces: each tile
+// of K and V split into big and small parts, and K also transposed
+// (dims x keys, keys in perm_col order), through a ring of 2 stages. Each
+// consumer warpgroup owns 64 rows, two per thread, Q as split A fragments
+// in registers:
+//   S = Q . K^T     3xTF32 wgmma m64nNTk8, A from registers
+//   dP = dO . V^T   3xTF32 wgmma m64nNTk8, A (dO, split once by the CTA)
+//                   from shared memory
+//   dS on the accumulator fragments, the rel sums from the fp32 dS
+//   dq += dS . K    3xTF32 wgmma m64n64k8, A from registers, B = K^T
+constexpr int F32_ROWS = 128;
+constexpr int F32_TILE_MAX = 48;   // keys of a key tile
+constexpr int DO_PART = part_bytes(F32_ROWS, D);  // 32 KiB
+
+__host__ __device__ constexpr int dq_stage_bytes(int nt) {
+  return 4 * part_bytes(nt, D) + 2 * part_bytes(D, nt);  // K, V, K^T
 }
 
-// S (16 x BT, stride LD) = A (16 x D) . B^T, B a (BT x D) tile; lane owns
-// row lane/2 and the columns of parity lane%2
-__device__ void warp_abt(const float* a, const float* b, float* s, int lane) {
-  const int r = lane >> 1;
-  const int h = lane & 1;
-  float ar[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) ar[d] = a[r * LD + d];
-  for (int j = 0; j < BT / 2; ++j) {
-    const float* br = b + (2 * j + h) * LD;
-    float acc = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc = fmaf(ar[d], br[d], acc);
-    s[r * LD + 2 * j + h] = acc;
-  }
+// [dO big | dO small | stages | barriers]
+constexpr size_t dq_smem_f32(int nt) {
+  return 1024 + 2 * (size_t)DO_PART + F32_STAGES * (size_t)dq_stage_bytes(nt)
+         + 64;
 }
 
-// a warp's (16 x D) accumulator of A (16 x BT) . B (BT x D), both tiles
-struct Acc {
-  float c[D / 2];
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) c[j] = 0.f;
-  }
-  __device__ void mma(const float* a, const float* b, int lane) {
-    const int r = lane >> 1;
-    const int h = lane & 1;
-    for (int kk = 0; kk < BT; ++kk) {
-      const float ak = a[r * LD + kk];
-      const float* br = b + kk * LD;
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) c[j] = fmaf(ak, br[2 * j + h], c[j]);
-    }
-  }
-  // rows at or past L are not written
-  __device__ void store(float* dst, int row0, int L, float mul, int lane) {
-    const int r = lane >> 1;
-    const int h = lane & 1;
-    if (row0 + r < L) {
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j)
-        dst[(size_t)(row0 + r) * D + 2 * j + h] = c[j] * mul;
-    }
-  }
-};
-
-size_t dq_smem_bytes(int kh, int kw) {
-  return 4 * (size_t)BT * LD * sizeof(float)        // Q, dO, K, V (then dS)
-         + 2 * (size_t)BT * LD * sizeof(float)      // S (then dS), dP
-         + 2 * (size_t)BT * (kh + kw) * sizeof(float);  // rel terms, sums
-}
-
-size_t dkv_smem_bytes(int nbmax, int kw) {
-  return 6 * (size_t)BT * LD * sizeof(float)        // K, V, Q, dO, P, dS
-         + 2 * (size_t)BT * LD * sizeof(float)      // S^T, dP^T
-         + (size_t)BT * (nbmax + kw + 2) * sizeof(float);  // rel, lse, delta
-}
-
-// (a) dq and the rel-bias gradients of one 64-row query tile
-__global__ void __launch_bounds__(THREADS)
+template <int NT>
+__global__ void __launch_bounds__(F32_THREADS, 1)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ rel_h,
           const float* __restrict__ rel_w, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dq, float* __restrict__ drel_h,
-          float* __restrict__ drel_w, int L, int kh, int kw, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + BT * LD;
-  float* Ks = dOs + BT * LD;
-  float* Vs = Ks + BT * LD;    // V, then this tile's dS
-  float* Ss = Vs + BT * LD;
-  float* dPs = Ss + BT * LD;
-  float* Rh = dPs + BT * LD;   // (BT, kh) rel_h * log2(e)
-  float* Rw = Rh + BT * kh;    // (BT, kw)
-  float* Gh = Rw + BT * kw;    // (BT, kh) d rel_h sums
-  float* Gw = Gh + BT * kh;    // (BT, kw) d rel_w sums
+          float* __restrict__ drel_w, int L, int kh, int kw, int R,
+          float scale) {
+  constexpr int KP = part_bytes(NT, D);   // K or V, one part
+  constexpr int TP = part_bytes(D, NT);   // K^T, one part
+  constexpr int SB = dq_stage_bytes(NT);
+  constexpr int NA = NT / 2;              // accumulator floats of S, dP
+  constexpr int NJ = NT / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_base = smem_u32(smem);
+  unsigned char* stages = smem + 2 * DO_PART;
+  const uint32_t bar_full = s_base + 2 * DO_PART + F32_STAGES * SB;
+  const uint32_t bar_empty = bar_full + 8 * F32_STAGES;
 
+  // the dk/dv kernel reads none of this kernel's outputs: it may start on
+  // the SMs this grid's last wave leaves idle (programmatic dependent
+  // launch) as soon as every CTA here has started
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BT;
+  const int q0 = blockIdx.x * F32_ROWS;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int span = R * kw;               // keys of a tile
+  const int nt = (kh + R - 1) / R;       // tiles
   const size_t base = (size_t)bh * L * D;
 
-  load_tile(Qs, q + base, q0, L, tid);
-  load_tile(dOs, dout + base, q0, L, tid);
-  for (int i = tid; i < BT * kh; i += THREADS) {
-    const int qr = q0 + i / kh;
-    Rh[i] = qr < L ? rel_h[((size_t)bh * L + qr) * kh + i % kh] * LOG2E : 0.f;
-    Gh[i] = 0.f;
+  if (tid == 0) {
+    for (int st = 0; st < F32_STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, F32_PRODUCERS);
+      mbar_init(bar_empty + 8 * st, F32_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < BT * kw; i += THREADS) {
-    const int qr = q0 + i / kw;
-    Rw[i] = qr < L ? rel_w[((size_t)bh * L + qr) * kw + i % kw] * LOG2E : 0.f;
-    Gw[i] = 0.f;
+  // dO of the CTA's rows, split once (zero past L)
+  for (int i = tid; i < F32_ROWS * 16; i += F32_THREADS) {
+    const int row = i >> 4, c = i & 15;
+    const float4 x = ld4(dout + base + (size_t)(q0 + row) * D + 4 * c,
+                         q0 + row < L);
+    store4(smem, smem + DO_PART, sw_off(row, 4 * c, F32_ROWS), x);
   }
+  fence_proxy_async();
+  __syncthreads();
 
-  const int r = lane >> 1;
-  const int h = lane & 1;
-  const int row = warp * WROWS + r;
-  const int qr = q0 + row;
-  const bool valid = qr < L;
-  // padded query rows read no lse / delta: their P and dS are forced to 0
-  const float lse2 = valid ? lse[(size_t)bh * L + qr] * LOG2E : 0.f;
-  const float dlt = valid ? delta[(size_t)bh * L + qr] : 0.f;
-  const float* Qw = Qs + warp * WROWS * LD;
-  const float* dOw = dOs + warp * WROWS * LD;
-  float* dSw = Vs + warp * WROWS * LD;
-  float* Sw = Ss + warp * WROWS * LD;
-  float* dPw = dPs + warp * WROWS * LD;
-  const float* rh = Rh + row * kh;
-  const float* rw = Rw + row * kw;
-  float* Ghw = Gh + warp * WROWS * kh;
-  float* Gww = Gw + warp * WROWS * kw;
-  const float sc = scale * LOG2E;
-  Acc dqa;
-  dqa.zero();
-
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    __syncthreads();  // the previous tile's K / V are consumed
-    load_tile(Ks, k + base, k0, L, tid);
-    load_tile(Vs, v + base, k0, L, tid);
-    __syncthreads();
-
-    warp_abt(Qw, Ks, Sw, lane);
-    warp_abt(dOw, Vs, dPw, lane);
-    __syncthreads();  // every warp has read V: its rows take dS now
-
-    const int kend = min(k0 + BT, L);
-#pragma unroll 4
-    for (int j = 0; j < BT / 2; ++j) {
-      const int c = 2 * j + h;
-      const int key = k0 + c;
-      float ds = 0.f;
-      if (valid && key < kend) {
-        const int kr = key / kw;
-        const float s2 = Sw[r * LD + c] * sc + rh[kr] + rw[key - kr * kw];
-        const float p = exp2f(s2 - lse2);
-        ds = p * (dPw[r * LD + c] - dlt);
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int p = tid - F32_CONSUMERS;
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % F32_STAGES;
+      mbar_wait(bar_empty + 8 * st, ((t / F32_STAGES) & 1) ^ 1);
+      fence_proxy_async();
+      unsigned char* sk = stages + st * SB;
+      const int k0 = t * span;
+      // a warp's lanes on neighbouring keys of one float4 column: K and V
+      // as they are, K also transposed (a row of K^T per dim); two keys'
+      // K and V (four loads) in flight a thread
+      for (int i0 = p; i0 < NT * 16; i0 += 2 * F32_PRODUCERS) {
+        float4 xk[2], xv[2];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int i = i0 + b * F32_PRODUCERS;
+          const int row = i % NT, c = i / NT;
+          const bool ok = i < NT * 16 && row < span && k0 + row < L;
+          const size_t at = base + (size_t)(k0 + row) * D + 4 * c;
+          xk[b] = ld4(k + at, ok);
+          xv[b] = ld4(v + at, ok);
+        }
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int i = i0 + b * F32_PRODUCERS;
+          const int row = i % NT, c = i / NT;
+          if (i < NT * 16) {
+            store4(sk, sk + KP, sw_off(row, 4 * c, NT), xk[b]);
+            store4(sk + 2 * KP, sk + 3 * KP, sw_off(row, 4 * c, NT), xv[b]);
+            store4_t(sk + 4 * KP, sk + 4 * KP + TP, 4 * c, row, D, xk[b]);
+          }
+        }
       }
-      Sw[r * LD + c] = ds;
-      dSw[r * LD + c] = ds;
+      fence_proxy_async();
+      mbar_arrive(bar_full + 8 * st);
     }
-    __syncwarp();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const int ga = q0 + wg * 64 + warp * 16 + g;  // the thread's rows ga, +8
+    const int gb = ga + 8;
+    const bool va = ga < L;
+    const bool vb = gb < L;
+    // padded rows read no lse / delta / rel terms: their dS is forced to 0
+    const float lse_a = va ? lse[(size_t)bh * L + ga] * LOG2E : 0.f;
+    const float lse_b = vb ? lse[(size_t)bh * L + gb] * LOG2E : 0.f;
+    const float dl_a = va ? delta[(size_t)bh * L + ga] : 0.f;
+    const float dl_b = vb ? delta[(size_t)bh * L + gb] : 0.f;
+    const size_t ra = (size_t)bh * L + (va ? ga : 0);
+    const size_t rb = (size_t)bh * L + (vb ? gb : 0);
+    const float sc = scale * LOG2E;
+    const float inv_kw = 1.f / (float)kw;
+    const uint32_t s_do = s_base + wg * 64 * 128;
+    const uint64_t dOb = desc_sw128(s_do, 16, 1024);
+    const uint64_t dOs = desc_sw128(s_do + DO_PART, 16, 1024);
 
-    // rel-bias sums: each (row, bin) of this tile summed by one lane, in
-    // key order
-    const int b0 = k0 / kw;
-    const int nb = bins_touched(k0, kend, kw);
-    for (int i = lane; i < WROWS * nb; i += 32) {
-      const int rr = i / nb;
-      const int b = b0 + i % nb;
-      const int j1 = min(b * kw + kw, kend);
-      float acc = 0.f;
-      for (int j = max(b * kw, k0); j < j1; ++j) acc += Sw[rr * LD + j - k0];
-      Ghw[rr * kh + b] += acc;
+    uint32_t qb[8][4], qs[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r & 1 ? gb : ga;
+        const int col = 8 * kk + tq + 4 * (r >> 1);
+        split(row < L ? q[base + (size_t)row * D + col] : 0.f, qb[kk][r],
+              qs[kk][r]);
+      }
+
+    // dqa: the running dq; dqt: this tile's dS.K, started from zero and
+    // added in registers (rounded), not summed in the tensor cores, whose
+    // truncating accumulation drifts toward zero over the loop
+    float s[NA], dp[NA], gw[NA], dqa[32], dqt[32];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) s[i] = dp[i] = gw[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] = dqt[i] = 0.f;
+
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % F32_STAGES;
+      mbar_wait(bar_full + 8 * st, (t / F32_STAGES) & 1);
+      const uint32_t sk = s_base + 2 * DO_PART + st * SB;
+      const uint64_t dKb = desc_sw128(sk, 16, 1024);
+      const uint64_t dKs = desc_sw128(sk + KP, 16, 1024);
+      const uint64_t dVb = desc_sw128(sk + 2 * KP, 16, 1024);
+      const uint64_t dVs = desc_sw128(sk + 3 * KP, 16, 1024);
+      const uint64_t dTb = desc_sw128(sk + 4 * KP, 16, 1024);
+      const uint64_t dTs = desc_sw128(sk + 4 * KP + TP, 16, 1024);
+
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma3_rs<NT>(s, qb, qs, dKb, dKs, NT, 0);
+      mma3_ss<NT, 8>(dp, dOb, dOs, F32_ROWS, dVb, dVs, NT, 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      fence_u32(qb);
+      fence_u32(qs);
+
+      // dS on the fragments, in fp32; the bias of position 8j + 2tq + e
+      // read from the rel terms (L1 / L2), its grid row in the tile
+      // (p + 0.5) / kw
+      const int k0 = t * span;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pos = 8 * j + 2 * tq + e;
+          const int rr = (int)(((float)pos + 0.5f) * inv_kw);
+          const int bin = t * R + rr;
+          const bool ok = pos < span && bin < kh;
+          const int hb = ok ? bin : 0;
+          const int wc = ok ? pos - rr * kw : 0;
+          const int ia = 4 * j + e, ib = 4 * j + 2 + e;
+          const float ba = (rel_h[ra * kh + hb] + rel_w[ra * kw + wc]) * LOG2E;
+          const float bb = (rel_h[rb * kh + hb] + rel_w[rb * kw + wc]) * LOG2E;
+          const float pa = exp2f(fmaf(s[ia], sc, ba) - lse_a);
+          const float pb = exp2f(fmaf(s[ib], sc, bb) - lse_b);
+          s[ia] = ok && va ? pa * (dp[ia] - dl_a) : 0.f;
+          s[ib] = ok && vb ? pb * (dp[ib] - dl_b) : 0.f;
+        }
+      // d rel_w per position, across the loop
+#pragma unroll
+      for (int i = 0; i < NA; ++i) gw[i] += s[i];
+      // d rel_h of the tile's grid rows: the quad's sums in a fixed order
+      for (int rr = 0; rr < R; ++rr) {
+        float ha = 0.f, hb = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int pos = 8 * j + 2 * tq + e;
+            if ((int)(((float)pos + 0.5f) * inv_kw) == rr) {
+              ha += s[4 * j + e];
+              hb += s[4 * j + 2 + e];
+            }
+          }
+        ha += __shfl_xor_sync(0xffffffffu, ha, 1);
+        hb += __shfl_xor_sync(0xffffffffu, hb, 1);
+        ha += __shfl_xor_sync(0xffffffffu, ha, 2);
+        hb += __shfl_xor_sync(0xffffffffu, hb, 2);
+        const int bin = t * R + rr;
+        if (tq == 0 && bin < kh) {
+          if (va) drel_h[ra * kh + bin] = ha;
+          if (vb) drel_h[rb * kh + bin] = hb;
+        }
+      }
+
+      // dq += dS . K: dS's split A fragments against K^T's key order
+      uint32_t db[NJ][4], ds[NJ][4];
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) frag_from_acc(s, kk, db[kk], ds[kk]);
+      fence_regs(dqt);
+      wgmma_fence();
+      mma3_rs<D>(dqt, db, ds, dTb, dTs, D, 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dqt);
+      fence_u32(db);
+      fence_u32(ds);
+      mbar_arrive(bar_empty + 8 * st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[i] += dqt[i];
     }
-    const int m0 = k0 % kw;
-    for (int i = lane; i < WROWS * kw; i += 32) {
+
+    float* dqb = dq + base;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      if (va)
+        *reinterpret_cast<float2*>(dqb + (size_t)ga * D + c) =
+            make_float2(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+      if (vb)
+        *reinterpret_cast<float2*>(dqb + (size_t)gb * D + c) =
+            make_float2(dqa[4 * j + 2] * scale, dqa[4 * j + 3] * scale);
+    }
+    // d rel_w: every consumer is past the ring, which now holds each
+    // warp's position sums (16 rows x NT); a lane folds a (row, column)
+    // over the tile's R grid rows in order
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* fold = reinterpret_cast<float*>(stages) + (wg * 4 + warp) * 16 * NT;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        fold[g * NT + 8 * j + 2 * tq + e] = gw[4 * j + e];
+        fold[(g + 8) * NT + 8 * j + 2 * tq + e] = gw[4 * j + 2 + e];
+      }
+    __syncwarp();
+    const int row0 = q0 + wg * 64 + warp * 16;
+    for (int i = lane; i < 16 * kw; i += 32) {
       const int rr = i / kw;
-      const int c = i % kw;
+      const int c = i - rr * kw;
       float acc = 0.f;
-      for (int j = k0 + (c - m0 + kw) % kw; j < kend; j += kw)
-        acc += Sw[rr * LD + j - k0];
-      Gww[rr * kw + c] += acc;
+      for (int r = 0; r < R; ++r) acc += fold[rr * NT + r * kw + c];
+      if (row0 + rr < L) drel_w[((size_t)bh * L + row0 + rr) * kw + c] = acc;
     }
-
-    dqa.mma(dSw, Ks, lane);
-    __syncwarp();
-  }
-
-  dqa.store(dq + base, q0 + warp * WROWS, L, scale, lane);
-  for (int i = lane; i < WROWS * kh; i += 32) {
-    const int gq = q0 + warp * WROWS + i / kh;
-    if (gq < L) drel_h[((size_t)bh * L + gq) * kh + i % kh] = Ghw[i];
-  }
-  for (int i = lane; i < WROWS * kw; i += 32) {
-    const int gq = q0 + warp * WROWS + i / kw;
-    if (gq < L) drel_w[((size_t)bh * L + gq) * kw + i % kw] = Gww[i];
   }
 }
 
-// (b) dk and dv of one 64-key tile
-__global__ void __launch_bounds__(THREADS)
+// (b) dk and dv: one CTA per (128 keys, bh). Its 128 rows of V are split
+// once into shared memory (the A operand of dP^T); each consumer thread
+// holds its keys' K as split A fragments. Warpgroup 2 produces query
+// tiles of 32 through a ring of 2 stages: Q and dO split as they are and
+// transposed (dims x queries, queries in perm_col order), and the tile
+// rows' rel_h, rel_w, lse and delta, contiguous blocks copied raw by
+// cp.async (signalled on the stage's full barrier by
+// cp.async.mbarrier.arrive). Each consumer warpgroup owns 64 keys:
+//   S^T = K . Q^T     3xTF32 wgmma m64n32k8, A from registers
+//   dP^T = V . dO^T   3xTF32 wgmma m64n32k8, A from shared memory
+//   P^T, dS^T on the accumulator fragments
+//   dv += P^T . dO, dk += dS^T . Q   3xTF32 wgmma m64n64k8, A from
+//                     registers, B = dO^T, Q^T
+constexpr int F32_KEYS = 128;
+constexpr int F32_QT = 32;                          // queries of a tile
+constexpr int V_PART = part_bytes(F32_KEYS, D);     // 32 KiB
+constexpr int QT_PART = part_bytes(F32_QT, D);      // Q or dO, 8 KiB
+constexpr int QTT_PART = part_bytes(D, F32_QT);     // Q^T or dO^T, 8 KiB
+static_assert(QT_PART == QTT_PART, "a query tile's parts are one size");
+constexpr int QS_BYTES = 8 * QT_PART;               // a stage's operands
+
+// full barrier arrivals: each producer thread once for its cp.async
+// copies and once for its stores
+constexpr int F32_FULL_ARRIVALS = 2 * F32_PRODUCERS;
+
+// a stage's raw rel block, copy_block destinations of the tile's rows:
+// [rel_h (QT x kh) | rel_w (QT x kw) | lse | delta]
+__host__ __device__ constexpr int rel_block_bytes(int kh, int kw) {
+  return 4 * (block_room<float>(F32_QT * kh) + block_room<float>(F32_QT * kw)
+              + 2 * block_room<float>(F32_QT));
+}
+
+// [V big | V small | stage operands | rel blocks | barriers]
+size_t dkv_smem_f32(int kh, int kw) {
+  return 1024 + 2 * (size_t)V_PART + F32_STAGES * (size_t)QS_BYTES +
+         F32_STAGES * (size_t)rel_block_bytes(kh, kw) + 64;
+}
+
+// the element offset copy_block gives src inside its destination
+__device__ __forceinline__ int raw_offset(const float* src) {
+  return (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(float));
+}
+
+__global__ void __launch_bounds__(F32_THREADS, 1)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ rel_h,
            const float* __restrict__ rel_w, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dk, float* __restrict__ dv, int L, int kh,
-           int kw, int nbmax, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + BT * LD;
-  float* Qs = Vs + BT * LD;
-  float* dOs = Qs + BT * LD;
-  float* Ps = dOs + BT * LD;
-  float* dSs = Ps + BT * LD;
-  float* Ss = dSs + BT * LD;
-  float* dPs = Ss + BT * LD;
-  float* Rh = dPs + BT * LD;    // (BT queries, nbmax) rel_h * log2(e)
-  float* Rw = Rh + BT * nbmax;  // (BT queries, kw)
-  float* Lse2 = Rw + BT * kw;   // (BT) lse * log2(e)
-  float* Dlt = Lse2 + BT;       // (BT) delta
+           int kw, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_base = smem_u32(smem);
+  unsigned char* ops = smem + 2 * V_PART;
+  const int rb_bytes = rel_block_bytes(kh, kw);
+  unsigned char* rels = ops + F32_STAGES * QS_BYTES;
+  const uint32_t bar_full = smem_u32(rels + F32_STAGES * rb_bytes);
+  const uint32_t bar_empty = bar_full + 8 * F32_STAGES;
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BT;
+  const int k0 = blockIdx.x * F32_KEYS;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int nt = (L + F32_QT - 1) / F32_QT;
   const size_t base = (size_t)bh * L * D;
 
-  load_tile(Ks, k + base, k0, L, tid);
-  load_tile(Vs, v + base, k0, L, tid);
-
-  const int kend = min(k0 + BT, L);
-  const int b0 = k0 / kw;
-  const int nb = bins_touched(k0, kend, kw);
-  const int r = lane >> 1;
-  const int h = lane & 1;
-  const int key = k0 + warp * WROWS + r;
-  const bool kvalid = key < L;
-  const int kr = kvalid ? key / kw - b0 : 0;  // bin, local to the tile
-  const int kc = kvalid ? key % kw : 0;
-  const float* Kw = Ks + warp * WROWS * LD;
-  const float* Vw = Vs + warp * WROWS * LD;
-  float* Pw = Ps + warp * WROWS * LD;
-  float* dSw = dSs + warp * WROWS * LD;
-  float* Sw = Ss + warp * WROWS * LD;
-  float* dPw = dPs + warp * WROWS * LD;
-  const float sc = scale * LOG2E;
-  Acc dka, dva;
-  dka.zero();
-  dva.zero();
-
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    __syncthreads();  // the previous query tile is consumed
-    load_tile(Qs, q + base, q0, L, tid);
-    load_tile(dOs, dout + base, q0, L, tid);
-    for (int i = tid; i < BT * nb; i += THREADS) {
-      const int qr = q0 + i / nb;
-      Rh[(i / nb) * nbmax + i % nb] = qr < L
-          ? rel_h[((size_t)bh * L + qr) * kh + b0 + i % nb] * LOG2E : 0.f;
+  if (tid == 0) {
+    for (int st = 0; st < F32_STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, F32_FULL_ARRIVALS);
+      mbar_init(bar_empty + 8 * st, F32_CONSUMERS);
     }
-    for (int i = tid; i < BT * kw; i += THREADS) {
-      const int qr = q0 + i / kw;
-      Rw[i] = qr < L ? rel_w[((size_t)bh * L + qr) * kw + i % kw] * LOG2E
-                     : 0.f;
-    }
-    for (int i = tid; i < BT; i += THREADS) {
-      const bool ok = q0 + i < L;
-      Lse2[i] = ok ? lse[(size_t)bh * L + q0 + i] * LOG2E : 0.f;
-      Dlt[i] = ok ? delta[(size_t)bh * L + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    warp_abt(Kw, Qs, Sw, lane);    // S^T: 16 keys x 64 queries
-    warp_abt(Vw, dOs, dPw, lane);  // dP^T
-    __syncwarp();
-
-#pragma unroll 4
-    for (int j = 0; j < BT / 2; ++j) {
-      const int c = 2 * j + h;  // query within the tile
-      float p = 0.f;
-      float ds = 0.f;
-      if (kvalid && q0 + c < L) {
-        const float s2 = Sw[r * LD + c] * sc + Rh[c * nbmax + kr]
-                         + Rw[c * kw + kc];
-        p = exp2f(s2 - Lse2[c]);
-        ds = p * (dPw[r * LD + c] - Dlt[c]);
-      }
-      Pw[r * LD + c] = p;
-      dSw[r * LD + c] = ds;
-    }
-    __syncwarp();
-
-    dva.mma(Pw, dOs, lane);  // (16 keys x 64 q) . (64 q x D)
-    dka.mma(dSw, Qs, lane);
-    __syncwarp();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  for (int i = tid; i < F32_KEYS * 16; i += F32_THREADS) {
+    const int row = i >> 4, c = i & 15;
+    const float4 x = ld4(v + base + (size_t)(k0 + row) * D + 4 * c,
+                         k0 + row < L);
+    store4(smem, smem + V_PART, sw_off(row, 4 * c, F32_KEYS), x);
+  }
+  fence_proxy_async();
+  __syncthreads();
 
-  dva.store(dv + base, k0 + warp * WROWS, L, 1.f, lane);
-  dka.store(dk + base, k0 + warp * WROWS, L, scale, lane);
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int p = tid - F32_CONSUMERS;
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % F32_STAGES;
+      mbar_wait(bar_empty + 8 * st, ((t / F32_STAGES) & 1) ^ 1);
+      fence_proxy_async();
+      unsigned char* sq = ops + st * QS_BYTES;
+      const int q0 = t * F32_QT;
+      // the tile rows' rel_h, rel_w, lse and delta: contiguous blocks,
+      // copied raw while the operands are split
+      const size_t row0 = (size_t)bh * L + q0;
+      const int rows = min(F32_QT, L - q0);
+      float* rh = reinterpret_cast<float*>(rels + st * rb_bytes);
+      float* rw = rh + block_room<float>(F32_QT * kh);
+      float* ls = rw + block_room<float>(F32_QT * kw);
+      float* dl = ls + block_room<float>(F32_QT);
+      copy_block(rh, rel_h + row0 * kh, rows * kh, p, F32_PRODUCERS);
+      copy_block(rw, rel_w + row0 * kw, rows * kw, p, F32_PRODUCERS);
+      copy_block(ls, lse + row0, rows, p, F32_PRODUCERS);
+      copy_block(dl, delta + row0, rows, p, F32_PRODUCERS);
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                   ::"r"(bar_full + 8 * st) : "memory");
+      // two queries' Q and dO (four loads) in flight a thread
+      for (int i0 = p; i0 < F32_QT * 16; i0 += 2 * F32_PRODUCERS) {
+        float4 xq[2], xd[2];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int i = i0 + b * F32_PRODUCERS;
+          const int row = i % F32_QT, c = i / F32_QT;
+          const size_t at = base + (size_t)(q0 + row) * D + 4 * c;
+          xq[b] = ld4(q + at, q0 + row < L);
+          xd[b] = ld4(dout + at, q0 + row < L);
+        }
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int i = i0 + b * F32_PRODUCERS;
+          const int row = i % F32_QT, c = i / F32_QT;
+          store4(sq, sq + QT_PART, sw_off(row, 4 * c, F32_QT), xq[b]);
+          store4(sq + 2 * QT_PART, sq + 3 * QT_PART,
+                 sw_off(row, 4 * c, F32_QT), xd[b]);
+          store4_t(sq + 4 * QT_PART, sq + 5 * QT_PART, 4 * c, row, D, xq[b]);
+          store4_t(sq + 6 * QT_PART, sq + 7 * QT_PART, 4 * c, row, D, xd[b]);
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(bar_full + 8 * st);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    // the thread's keys ka, ka + 8: grid row and column
+    const int ka = k0 + wg * 64 + warp * 16 + g;
+    const int kb = ka + 8;
+    const bool va = ka < L;
+    const bool vb = kb < L;
+    const int ha = va ? ka / kw : 0;
+    const int ca = va ? ka % kw : 0;
+    const int hb = vb ? kb / kw : 0;
+    const int cb = vb ? kb % kw : 0;
+    const float sc = scale * LOG2E;
+    const uint32_t s_v = s_base + wg * 64 * 128;
+    const uint64_t dVb = desc_sw128(s_v, 16, 1024);
+    const uint64_t dVs = desc_sw128(s_v + V_PART, 16, 1024);
+
+    uint32_t kbg[8][4], ksm[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r & 1 ? kb : ka;
+        const int col = 8 * kk + tq + 4 * (r >> 1);
+        split(row < L ? k[base + (size_t)row * D + col] : 0.f, kbg[kk][r],
+              ksm[kk][r]);
+      }
+
+    // dka, dva: the running sums; acc: one tile's product (dv's, then
+    // dk's), started from zero and added in registers (rounded), not
+    // summed in the tensor cores, whose truncating accumulation drifts
+    // toward zero over the loop
+    float s[16], dp[16], dka[32], dva[32], acc[32];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = acc[i] = 0.f;
+
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % F32_STAGES;
+      mbar_wait(bar_full + 8 * st, (t / F32_STAGES) & 1);
+      // the stage's eight parts, QT_PART apart: Q, dO, Q^T, dO^T (big,
+      // small); one descriptor base, the parts' offsets added at each use
+      const uint64_t dsq =
+          desc_sw128(s_base + 2 * V_PART + st * QS_BYTES, 16, 1024);
+      constexpr uint64_t PD = QT_PART >> 4;
+
+      // S^T = K . Q^T and dP^T = V . dO^T (64 keys x 32 queries)
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma3_rs<F32_QT>(s, kbg, ksm, dsq, dsq + PD, F32_QT, 0);
+      mma3_ss<F32_QT, 8>(dp, dVb, dVs, F32_KEYS, dsq + 2 * PD, dsq + 3 * PD,
+                         F32_QT, 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      fence_u32(kbg);
+      fence_u32(ksm);
+
+      // P^T and dS^T: column c = 8j + 2tq + e is query q0 + c; the raw
+      // rel terms, lse and delta of the tile's rows (nothing past L)
+      const int q0 = t * F32_QT;
+      const size_t row0 = (size_t)bh * L + q0;
+      const float* rh = reinterpret_cast<const float*>(rels + st * rb_bytes);
+      const float* rw = rh + block_room<float>(F32_QT * kh);
+      const float* ls = rw + block_room<float>(F32_QT * kw);
+      const float* dl = ls + block_room<float>(F32_QT);
+      rh += raw_offset(rel_h + row0 * kh);
+      rw += raw_offset(rel_w + row0 * kw);
+      ls += raw_offset(lse + row0);
+      dl += raw_offset(delta + row0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * tq + e;
+          const bool qok = q0 + c < L;
+          const int ia = 4 * j + e, ib = 4 * j + 2 + e;
+          const float l2 = qok ? ls[c] * LOG2E : 0.f;
+          const float dlt = qok ? dl[c] : 0.f;
+          const float pa = exp2f(
+              fmaf(fmaf(s[ia], scale, rh[c * kh + ha] + rw[c * kw + ca]),
+                   LOG2E, -l2));
+          const float pb = exp2f(
+              fmaf(fmaf(s[ib], scale, rh[c * kh + hb] + rw[c * kw + cb]),
+                   LOG2E, -l2));
+          s[ia] = qok && va ? pa : 0.f;
+          s[ib] = qok && vb ? pb : 0.f;
+          dp[ia] = s[ia] * (dp[ia] - dlt);
+          dp[ib] = s[ib] * (dp[ib] - dlt);
+        }
+
+      // dv += P^T . dO, then dk += dS^T . Q: one split operand in
+      // registers at a time
+      uint32_t fb[4][4], fs[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) frag_from_acc(s, kk, fb[kk], fs[kk]);
+      fence_regs(acc);
+      wgmma_fence();
+      mma3_rs<D>(acc, fb, fs, dsq + 6 * PD, dsq + 7 * PD, D, 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      fence_u32(fb);
+      fence_u32(fs);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dva[i] += acc[i];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) frag_from_acc(dp, kk, fb[kk], fs[kk]);
+      fence_regs(acc);
+      wgmma_fence();
+      mma3_rs<D>(acc, fb, fs, dsq + 4 * PD, dsq + 5 * PD, D, 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      fence_u32(fb);
+      fence_u32(fs);
+      mbar_arrive(bar_empty + 8 * st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dka[i] += acc[i];
+    }
+
+    float* dkb = dk + base;
+    float* dvb = dv + base;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      if (va) {
+        *reinterpret_cast<float2*>(dkb + (size_t)ka * D + c) =
+            make_float2(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+        *reinterpret_cast<float2*>(dvb + (size_t)ka * D + c) =
+            make_float2(dva[4 * j], dva[4 * j + 1]);
+      }
+      if (vb) {
+        *reinterpret_cast<float2*>(dkb + (size_t)kb * D + c) =
+            make_float2(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+        *reinterpret_cast<float2*>(dvb + (size_t)kb * D + c) =
+            make_float2(dva[4 * j + 2], dva[4 * j + 3]);
+      }
+    }
+  }
+  // launched early beside the dq grid: finish only after it has, so work
+  // after K2 on the stream sees dq and the rel-bias gradients
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// the key tile of the dq kernel: R grid rows of kw keys, NT columns
+inline int tile_rows(int kw) { return F32_TILE_MAX / kw; }
+inline int tile_cols(int kw) { return (tile_rows(kw) * kw + 7) & ~7; }
+
+template <int NT>
+int launch_dq(const void* q, const void* k, const void* v, const void* rel_h,
+              const void* rel_w, const void* dout, const void* lse,
+              const void* delta, void* dq, void* drel_h, void* drel_w,
+              int bh, int L, int kh, int kw, float scale, cudaStream_t st) {
+  const size_t smem = dq_smem_f32(NT);
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_kernel<NT><<<dim3((L + F32_ROWS - 1) / F32_ROWS, bh), F32_THREADS, smem,
+                  st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(rel_h),
+      static_cast<const float*>(rel_w), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), static_cast<float*>(drel_h),
+      static_cast<float*>(drel_w), L, kh, kw, tile_rows(kw), scale);
+  return (int)cudaGetLastError();
 }
 
 int launch(const void* q, const void* k, const void* v, const void* rel_h,
@@ -439,40 +758,56 @@ int launch(const void* q, const void* k, const void* v, const void* rel_h,
            const void* delta, void* dq, void* dk, void* dv, void* drel_h,
            void* drel_w, int bh, int L, int kh, int kw, float scale,
            cudaStream_t st) {
-  const int nbmax = max_bins(kh, kw);
-  if (dq_smem_bytes(kh, kw) > SMEM_OPTIN ||
-      dkv_smem_bytes(nbmax, kw) > SMEM_OPTIN)
+  // a key tile of the dq kernel holds at least one grid row; then the
+  // layouts' bytes
+  if (kw > F32_TILE_MAX || dq_smem_f32(tile_cols(kw)) > SMEM_OPTIN ||
+      dkv_smem_f32(kh, kw) > SMEM_OPTIN)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((L + BT - 1) / BT, bh);
-  const size_t smem_a = dq_smem_bytes(kh, kw);
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err != cudaSuccess) return (int)err;
-  dq_kernel<<<grid, THREADS, smem_a, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(rel_h),
-      static_cast<const float*>(rel_w), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), static_cast<float*>(drel_h),
-      static_cast<float*>(drel_w), L, kh, kw, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int rc;
+  switch (tile_cols(kw)) {
+    case 8: rc = launch_dq<8>(q, k, v, rel_h, rel_w, dout, lse, delta, dq,
+                              drel_h, drel_w, bh, L, kh, kw, scale, st); break;
+    case 16: rc = launch_dq<16>(q, k, v, rel_h, rel_w, dout, lse, delta, dq,
+                                drel_h, drel_w, bh, L, kh, kw, scale, st); break;
+    case 24: rc = launch_dq<24>(q, k, v, rel_h, rel_w, dout, lse, delta, dq,
+                                drel_h, drel_w, bh, L, kh, kw, scale, st); break;
+    case 32: rc = launch_dq<32>(q, k, v, rel_h, rel_w, dout, lse, delta, dq,
+                                drel_h, drel_w, bh, L, kh, kw, scale, st); break;
+    case 40: rc = launch_dq<40>(q, k, v, rel_h, rel_w, dout, lse, delta, dq,
+                                drel_h, drel_w, bh, L, kh, kw, scale, st); break;
+    default: rc = launch_dq<48>(q, k, v, rel_h, rel_w, dout, lse, delta, dq,
+                                drel_h, drel_w, bh, L, kh, kw, scale, st);
+  }
+  if (rc != cudaSuccess) return rc;
 
-  const size_t smem_b = dkv_smem_bytes(nbmax, kw);
-  err = cudaFuncSetAttribute(
+  const size_t smem_b = dkv_smem_f32(kh, kw);
+  cudaError_t err = cudaFuncSetAttribute(
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<<<grid, THREADS, smem_b, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(rel_h),
-      static_cast<const float*>(rel_w), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), L, kh, kw, nbmax,
-      scale);
+  // programmatic dependent launch: the dk/dv grid may start while the dq
+  // grid's last wave runs (each grid is ~3 waves at 80x40 BH 16)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((L + F32_KEYS - 1) / F32_KEYS, bh);
+  cfg.blockDim = dim3(F32_THREADS);
+  cfg.dynamicSmemBytes = smem_b;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, dkv_kernel, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(rel_h), static_cast<const float*>(rel_w),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), L, kh, kw, scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-}  // namespace f32
+}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA, warp-specialized; rel-bias products on mma.sync
@@ -1164,9 +1499,9 @@ int flash_relpos_bwd_f32(const void* q, const void* k, const void* v,
                          void* dq, void* dk, void* dv, void* drel_h,
                          void* drel_w, int bh, int L, int kh, int kw,
                          float scale, void* stream) {
-  return f32::launch(q, k, v, rel_h, rel_w, dout, lse, delta, dq, dk, dv,
-                     drel_h, drel_w, bh, L, kh, kw, scale,
-                     static_cast<cudaStream_t>(stream));
+  return tc::launch(q, k, v, rel_h, rel_w, dout, lse, delta, dq, dk, dv,
+                    drel_h, drel_w, bh, L, kh, kw, scale,
+                    static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_relpos_bwd_error_string(int code) {

@@ -60,10 +60,36 @@
 // rel_h pairs; other grids gather their biases into registers while the
 // tile's S is in flight (a key's grid row is (key + 0.5) / kw in fp32).
 //
-// The fp32 instantiation is scalar code (one CTA of 4 warps per 64-row
-// query tile, 64-key tiles through shared memory, FMAs): it exists so an
-// fp32 end-to-end comparison can be held to a tight tolerance, not for
-// speed.
+// fp32 design (sm_90a, namespace tc): 3xTF32 on wgmma
+// (flash_relpos_tf32.cuh: each operand split into big + small tf32 parts,
+// A_small.B_big + A_big.B_small + A_big.B_big with fp32 accumulation; one
+// TF32 product would miss the fp32 tolerance). Bound on an H100: the same
+// 4 * BH * L^2 * 64 FLOP three times over at the TF32 rate (495 TFLOP/s
+// dense, so 165 TFLOP/s of fp32-accurate products; fp32 FMAs give 67):
+// 0.488 ms at BH = 128, L = 1568. The exponentials now take a sixth of the
+// products' time. One CTA per (128 query rows, bh) of three warpgroups.
+// Warpgroup 2 produces (setmaxnreg 40): it loads each 64-key tile of K and
+// V with 16-byte loads, four in flight a thread, and writes it split, K as
+// is and V transposed (dims x keys, keys in perm_col order: wgmma reads
+// tf32 from shared memory K-major only), into a ring of 2 stages guarded
+// by full / empty mbarriers; the split passes through registers, so TMA
+// would only add a raw copy. Each consumer warpgroup (setmaxnreg 232) owns
+// 64 query rows, two per thread, and holds Q as split A fragments in
+// registers for the whole loop:
+//   S = Q.K^T      3 x 8 wgmma m64n64k8, A from registers, B = K;
+//   the online softmax on the accumulator fragments, the rel terms read
+//   from shared-memory pairs as in bf16;
+//   O = O * alpha + P.V   3 x 8 wgmma m64n64k8 into a zeroed tile
+//                  accumulator, A = P split in registers (S's accumulator
+//                  is P.V's A fragment against V^T's key order), B = V^T;
+//                  the tile joins O by a rounded fmaf (the tensor cores'
+//                  fp32 accumulation truncates, and O summed in them over
+//                  every tile drifts toward zero: ~3e-5 relative at L 1568).
+// The two consumer warpgroups overlap each other's softmax with products.
+// Shared memory: 2 stages x 4 parts x 16 KiB (128 KiB) and the rel pairs,
+// 512 B per kh + kw + 1 entries (smem_bytes): 175,680 B at 56x28, 194,112
+// at 80x40, 229,952 at kh + kw = 190, the route's limit (room for 195);
+// the CTA's raw rel terms are staged in the ring first (raw_rel_bytes).
 //
 // The launcher allocates nothing and does not synchronize; it returns
 // cudaGetLastError() (or the tensor-map encoder's failure as
@@ -75,7 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_relpos_common.cuh"
+#include "flash_relpos_tf32.cuh"
 
 namespace {
 
@@ -84,153 +110,288 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// fp32: scalar reference-grade kernel
+// fp32: 3xTF32 wgmma, warp-specialized
 // ---------------------------------------------------------------------------
 
-namespace f32 {
+namespace tc {
 
-constexpr int BQ = 64;           // query rows per CTA
-constexpr int BK = 64;           // keys per streamed tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int WROWS = BQ / WARPS;  // query rows per warp (16)
-constexpr int LD = D + 4;          // row stride of every tile / buffer
+using namespace tf32x3;
 
-// rows [row0, row0 + 64) of a (L, D) matrix into shared memory; rows past
-// L are zero-filled (zero V rows keep masked keys out of P.V)
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int L, int tid) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = tid; i < BQ * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 4;
-    const int gr = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < L) val = *reinterpret_cast<const float4*>(src + (size_t)gr * D + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
+constexpr int BM = 128;           // query rows per CTA (2 consumer warpgroups)
+constexpr int BN = 64;            // keys per K / V tile
+constexpr int STAGES = 2;         // K / V ring depth
+constexpr int THREADS = 384;      // warpgroups 0, 1 consume; 2 produces
+constexpr int CONSUMERS = 256;
+constexpr int PRODUCERS = THREADS - CONSUMERS;
+constexpr int BATCH = 4;          // float4 loads a producer thread keeps in flight
+constexpr int PART = part_bytes(BN, D);  // one part of K or of V^T, 16 KiB
+static_assert(part_bytes(D, BN) == PART, "K and V^T parts are one size");
+// a stage: [K big | K small | V^T big | V^T small]
+constexpr int STAGE_BYTES = 4 * PART;
+// shared memory: [stages | barriers | rel pairs]; the stages first hold
+// the CTA's raw rel terms
+constexpr int OFF_BAR = STAGES * STAGE_BYTES;
+constexpr int OFF_REL = OFF_BAR + 64;
+constexpr size_t SMEM_OPTIN = 232448;  // dynamic shared memory of a block
+
+__host__ __device__ constexpr int pair_stride(int kh, int kw) {
+  return (kh + kw) | 1;  // odd: 8 row pairs hit 8 bank groups
 }
 
 size_t smem_bytes(int kh, int kw) {
-  return 6 * (size_t)BQ * LD * sizeof(float)       // Q, K, V, P, S, O
-         + (size_t)BQ * (kh + kw) * sizeof(float);  // rel terms
+  return 1024 + OFF_REL + (size_t)(BM / 2) * pair_stride(kh, kw) * 8;
 }
 
-// lane owns row lane/2 of its warp's 16 and the columns of parity lane%2
-__global__ void __launch_bounds__(THREADS)
+// the CTA's raw rel_h and rel_w blocks (BM rows) in the stages
+constexpr size_t raw_rel_bytes(int kh, int kw) {
+  return 4 * ((size_t)block_room<float>(BM * kh) + block_room<float>(BM * kw));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ rel_h,
            const float* __restrict__ rel_w, float* __restrict__ out,
            float* __restrict__ lse, int L, int kh, int kw, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-  float* Ss = Ps + BQ * LD;
-  float* Os = Ss + BQ * LD;
-  float* Rh = Os + BQ * LD;  // (BQ, kh), pre-scaled by log2(e)
-  float* Rw = Rh + BQ * kh;  // (BQ, kw)
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles want 1024-byte alignment
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_full = s_base + OFF_BAR;          // STAGES x 8 bytes
+  const uint32_t bar_empty = bar_full + 8 * STAGES;    // STAGES x 8 bytes
+  float2* rel = reinterpret_cast<float2*>(smem + OFF_REL);
+  const int rs = pair_stride(kh, kw);
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int nt = (L + BN - 1) / BN;
   const size_t base = (size_t)bh * L * D;
 
-  load_tile(Qs, q + base, q0, L, tid);
-  for (int i = tid; i < BQ * kh; i += THREADS) {
-    const int qr = q0 + i / kh;
-    Rh[i] = qr < L ? rel_h[((size_t)bh * L + qr) * kh + i % kh] * LOG2E : 0.f;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, PRODUCERS);
+      mbar_init(bar_empty + 8 * st, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < BQ * kw; i += THREADS) {
-    const int qr = q0 + i / kw;
-    Rw[i] = qr < L ? rel_w[((size_t)bh * L + qr) * kw + i % kw] * LOG2E : 0.f;
-  }
-  for (int i = tid; i < BQ * LD; i += THREADS) Os[i] = 0.f;
-
-  const int r = lane >> 1;
-  const int h = lane & 1;
-  const int row = warp * WROWS + r;
-  const float* Qr = Qs + row * LD;
-  float* Pw = Ps + row * LD;
-  float* Sw = Ss + row * LD;
-  float* Ow = Os + row * LD;
-  const float* rh = Rh + row * kh;
-  const float* rw = Rw + row * kw;
-  const float sc = scale * LOG2E;
-  float m = -INFINITY;  // running row max (exp2 domain)
-  float l = 0.f;        // running row sum of exp2(s - m)
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // the previous tile's K / V are consumed
-    load_tile(Ks, k + base, k0, L, tid);
-    load_tile(Vs, v + base, k0, L, tid);
+  // the CTA's rows of rel_h and of rel_w are two contiguous blocks: copied
+  // raw into the stages, then rewritten as fp32 pairs (row r, row r + 8) of
+  // the rows one consumer thread holds, pre-scaled by log2(e); 0 past L
+  {
+    const int rows = min(BM, L - q0);
+    float* raw_h = reinterpret_cast<float*>(smem);
+    float* raw_w = raw_h + block_room<float>(rows * kh);
+    const int dh = copy_block(raw_h, rel_h + ((size_t)bh * L + q0) * kh,
+                              rows * kh, tid, THREADS);
+    const int dw = copy_block(raw_w, rel_w + ((size_t)bh * L + q0) * kw,
+                              rows * kw, tid, THREADS);
+    cp_async_commit();
+    cp_async_wait_all();
     __syncthreads();
-
-    float qr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = Qr[d];
-    for (int j = 0; j < BK / 2; ++j) {
-      const float* kr = Ks + (2 * j + h) * LD;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      Sw[2 * j + h] = acc;
+    for (int i = tid; i < (BM / 2) * (kh + kw); i += THREADS) {
+      const int pi = i / (kh + kw);  // 64 row pairs
+      const int c = i - pi * (kh + kw);
+      const int r0 = (pi >> 3) * 16 + (pi & 7);  // (warpgroup, warp, g)
+      const float* src = c < kh ? raw_h + dh + c : raw_w + dw + c - kh;
+      const int ld = c < kh ? kh : kw;
+      const float x0 = r0 < rows ? src[r0 * ld] : 0.f;
+      const float x1 = r0 + 8 < rows ? src[(r0 + 8) * ld] : 0.f;
+      rel[pi * rs + c] = make_float2(x0 * LOG2E, x1 * LOG2E);
     }
-
-    float sv[BK / 2];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const int c = 2 * j + h;
-      const int key = k0 + c;
-      float x = -INFINITY;  // ragged tail: masked before the max
-      if (key < L) {
-        const int kr = key / kw;
-        x = Sw[c] * sc + rh[kr] + rw[key - kr * kw];
-      }
-      sv[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    // column k0 < L is valid in every tile, so m_new is finite
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = exp2f(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const float pj = exp2f(sv[j] - m_new);
-      psum += pj;
-      Pw[2 * j + h] = pj;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();
-
-    float acc[D / 2];
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] = Ow[2 * j + h] * alpha;
-    for (int kk = 0; kk < BK; ++kk) {
-      const float pk = Pw[kk];
-      const float* vr = Vs + kk * LD;
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] = fmaf(pk, vr[2 * j + h], acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) Ow[2 * j + h] = acc[j];
-    __syncwarp();
   }
+  __syncthreads();  // the raw staging is read: the stages take tiles
 
-  const int qr = q0 + row;
-  if (qr < L) {
-    const float inv = 1.f / l;
-    float* og = out + base + (size_t)qr * D;
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    // The producer warpgroup loads each K / V tile with 16-byte loads,
+    // BATCH in flight a thread, and writes it split: K as is, V transposed
+    // (dims x keys, keys in perm_col order). The split has to pass through
+    // registers, so TMA would only add a raw copy and a second pass
+    // through shared memory.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int p = tid - CONSUMERS;
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(bar_empty + 8 * st, ((t / STAGES) & 1) ^ 1);
+      fence_proxy_async();
+      unsigned char* sk = smem + st * STAGE_BYTES;
+      const int k0 = t * BN;
+      // K: a key's 16 float4 on 16 neighbouring lanes
+      for (int i0 = p; i0 < BN * 16; i0 += BATCH * PRODUCERS) {
+        float4 x[BATCH];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) og[2 * j + h] = Ow[2 * j + h] * inv;
-    if (h == 0) lse[(size_t)bh * L + qr] = (m + log2f(l)) * LN2;
+        for (int b = 0; b < BATCH; ++b) {
+          const int i = i0 + b * PRODUCERS, row = i >> 4;
+          x[b] = ld4(k + base + (size_t)(k0 + row) * D + 4 * (i & 15),
+                     k0 + row < L);
+        }
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+          const int i = i0 + b * PRODUCERS;
+          store4(sk, sk + PART, sw_off(i >> 4, 4 * (i & 15), BN), x[b]);
+        }
+      }
+      // V: a warp's lanes on 32 keys of one float4 column, so the
+      // transposed stores of a row of V^T hit 32 banks
+      for (int i0 = p; i0 < BN * 16; i0 += BATCH * PRODUCERS) {
+        float4 x[BATCH];
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+          const int i = i0 + b * PRODUCERS, row = i & (BN - 1);
+          x[b] = ld4(v + base + (size_t)(k0 + row) * D + 4 * (i / BN),
+                     k0 + row < L);
+        }
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+          const int i = i0 + b * PRODUCERS;
+          store4_t(sk + 2 * PART, sk + 3 * PART, 4 * (i / BN), i & (BN - 1),
+                   D, x[b]);
+        }
+      }
+      fence_proxy_async();  // the generic stores, then wgmma's reads
+      mbar_arrive(bar_full + 8 * st);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = tid & 31;
+    const int warp = (tid & 127) >> 5;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const int ga = q0 + wg * 64 + warp * 16 + g;  // the thread's rows ga, +8
+    const int gb = ga + 8;
+    const float2* rrow = rel + (wg * 32 + warp * 8 + g) * rs;
+    const float sc = scale * LOG2E;
+    const float inv_kw = 1.f / (float)kw;
+
+    // Q as split A fragments, held for the whole loop
+    uint32_t qb[8][4], qs[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r & 1 ? gb : ga;
+        const int col = 8 * kk + tq + 4 * (r >> 1);
+        split(row < L ? q[base + (size_t)row * D + col] : 0.f, qb[kk][r],
+              qs[kk][r]);
+      }
+
+    // o: the running output; ot: this tile's P.V. The tensor cores'
+    // fp32 accumulation truncates, so O summed in them over ~600 products
+    // drifts toward zero (~3e-5 relative at L 1568); a tile's product
+    // starts from zero and joins O by one rounded fmaf per element
+    float o[32], ot[32], s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = ot[i] = s[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(bar_full + 8 * st, (t / STAGES) & 1);
+      const uint32_t sk = s_base + st * STAGE_BYTES;
+      const uint64_t dkb = desc_sw128(sk, 16, 1024);
+      const uint64_t dks = desc_sw128(sk + PART, 16, 1024);
+      const uint64_t dvb = desc_sw128(sk + 2 * PART, 16, 1024);
+      const uint64_t dvs = desc_sw128(sk + 3 * PART, 16, 1024);
+
+      // S = Q . K^T
+      fence_regs(s);
+      wgmma_fence();
+      mma3_rs<BN>(s, qb, qs, dkb, dks, BN, 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_u32(qb);
+      fence_u32(qs);
+
+      // logits in the exp2 domain, the online max, P = exp2(logit - max)
+      const int k0 = t * BN;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * tq + e;
+          float2 b = make_float2(-INFINITY, -INFINITY);
+          if (key < L) {  // a key's grid row is (key + 0.5) / kw in fp32
+            const int kr = (int)(((float)key + 0.5f) * inv_kw);
+            const float2 h = rrow[kr];
+            const float2 w = rrow[kh + key - kr * kw];
+            b = make_float2(h.x + w.x, h.y + w.y);
+          }
+          s[4 * j + e] = fmaf(s[4 * j + e], sc, b.x);
+          s[4 * j + 2 + e] = fmaf(s[4 * j + 2 + e], sc, b.y);
+          mx0 = fmaxf(mx0, s[4 * j + e]);
+          mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
+        }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // the first key of every tile is valid, so the new maxima are finite
+      const float n0 = fmaxf(m0, mx0);
+      const float n1 = fmaxf(m1, mx1);
+      const float a0 = exp2f(m0 - n0);
+      const float a1 = exp2f(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[4 * j + e] = exp2f(s[4 * j + e] - m0);
+          s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - m1);
+          ps0 += s[4 * j + e];
+          ps1 += s[4 * j + 2 + e];
+        }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+      // P's split A fragments: S's accumulator against V^T's key order
+      uint32_t pb[8][4], pq[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) frag_from_acc(s, kk, pb[kk], pq[kk]);
+
+      // O = O * alpha + P . V
+      fence_regs(ot);
+      wgmma_fence();
+      mma3_rs<D>(ot, pb, pq, dvb, dvs, D, 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(ot);
+      fence_u32(pb);
+      fence_u32(pq);
+      mbar_arrive(bar_empty + 8 * st);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j] = fmaf(o[4 * j], a0, ot[4 * j]);
+        o[4 * j + 1] = fmaf(o[4 * j + 1], a0, ot[4 * j + 1]);
+        o[4 * j + 2] = fmaf(o[4 * j + 2], a1, ot[4 * j + 2]);
+        o[4 * j + 3] = fmaf(o[4 * j + 3], a1, ot[4 * j + 3]);
+      }
+    }
+
+    // the row sums over the quad, then O / l
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    float* ob = out + base;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      if (ga < L)
+        *reinterpret_cast<float2*>(ob + (size_t)ga * D + c) =
+            make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (gb < L)
+        *reinterpret_cast<float2*>(ob + (size_t)gb * D + c) =
+            make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+    if (tq == 0) {
+      if (ga < L) lse[(size_t)bh * L + ga] = LN2 * (m0 + log2f(l0));
+      if (gb < L) lse[(size_t)bh * L + gb] = LN2 * (m1 + log2f(l1));
+    }
   }
 }
 
@@ -238,10 +399,12 @@ int launch(const void* q, const void* k, const void* v, const void* rel_h,
            const void* rel_w, void* out, void* lse, int bh, int L, int kh,
            int kw, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(kh, kw);
+  if (smem > SMEM_OPTIN || raw_rel_bytes(kh, kw) > (size_t)OFF_BAR)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + BQ - 1) / BQ, bh);
+  const dim3 grid((L + BM - 1) / BM, bh);
   fwd_kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(rel_h),
@@ -250,7 +413,7 @@ int launch(const void* q, const void* k, const void* v, const void* rel_h,
   return (int)cudaGetLastError();
 }
 
-}  // namespace f32
+}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA, warp-specialized
@@ -725,8 +888,8 @@ int flash_relpos_fwd_f32(const void* q, const void* k, const void* v,
                          const void* rel_h, const void* rel_w, void* out,
                          void* lse, int bh, int L, int kh, int kw,
                          float scale, void* stream) {
-  return f32::launch(q, k, v, rel_h, rel_w, out, lse, bh, L, kh, kw, scale,
-                     static_cast<cudaStream_t>(stream));
+  return tc::launch(q, k, v, rel_h, rel_w, out, lse, bh, L, kh, kw, scale,
+                    static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_relpos_fwd_error_string(int code) {

@@ -6,7 +6,11 @@ Hand-written CUDA kernels replace the TPU kernels of
 (``_fwd_impl``) and ``csrc/flash_relpos_bwd.cu`` (``_bwd_impl``) at the
 ViT-L shapes, ``csrc/flash_relpos_generic.cu`` (both) at the rest. Their
 headers state the contracts, what bounds them on an H100 and what their
-designs do about that. The TPU kernels' layout devices (128-lane padding,
+designs do about that. At the ViT-L shapes both types run on the tensor
+cores: bf16 on ``wgmma`` bf16, fp32 on ``wgmma`` tf32 in three products
+per product (3xTF32, ``csrc/flash_relpos_tf32.cuh``: each operand split
+into two tf32 parts: fp32 accuracy, whatever PyTorch's TF32 flags
+say). The TPU kernels' layout devices (128-lane padding,
 a bias axis folded into the QK contraction, the ones-column in V, the
 fixed-max softmax) are not carried over.
 
@@ -55,7 +59,8 @@ MXU_LANES = 128
 GENERIC_HEAD_DIMS = (16, 32, 64, 128)
 # the bf16 forward keeps its 128 rows' rel terms in shared memory: 512
 # bytes per (kh + kw) entry beside ~129 KiB of Q and the K / V ring, under
-# the 227 KB a block may use
+# the 227 KB a block may use (the fp32 forward: the same pairs beside a
+# 128 KiB ring of split K and V^T tiles, room for kh + kw <= 195)
 MAX_REL_ENTRIES = 190
 # the bf16 backward forms d rel_w from one-hot key -> column expanders of
 # at most 40 columns, and d rel_h from the <= 8 grid rows a 64-key tile
@@ -66,10 +71,17 @@ BWD_BF16_KW = (10, 40)
 # (csrc/flash_relpos_bwd.cu: raw_stage_bytes <= RAW_STAGE_ROOM, 2 x (128
 # (kh + kw) + 16) bytes and the alignment of rel_w's block within 32,768),
 # so kh + kw <= 127. No other layout binds first: at kh + kw <= 127 the
-# bf16 dq kernel takes at most 221,184 B, its dk/dv kernel 136,192 B and
-# the fp32 kernels 169,472 / 172,288 B, under the 232,448 B a block may
-# opt into. The launchers refuse any grid their own byte counts exceed.
+# bf16 dq kernel takes at most 221,184 B and its dk/dv kernel 136,192 B;
+# the fp32 dq kernel's bytes do not depend on kh + kw (230,464 B at its
+# widest key tile) and its dk/dv kernel takes at most 230,848 B (its raw
+# rel blocks, 128 B per kh + kw and stage), under the 232,448 B a block
+# may opt into. The launchers refuse any grid
+# their own byte counts exceed.
 BWD_MAX_REL_ENTRIES = 127
+# the fp32 backward's dq kernel walks key tiles of whole key-grid rows, at
+# most F32_TILE_MAX = 48 keys (csrc/flash_relpos_bwd.cu), so that d rel_w
+# sums per tile position in registers: kw <= 48
+BWD_F32_KW_MAX = 48
 _FWD_FUNCS = {torch.bfloat16: "flash_relpos_fwd_bf16",
               torch.float32: "flash_relpos_fwd_f32"}
 _BWD_FUNCS = {torch.bfloat16: "flash_relpos_bwd_bf16",
@@ -136,10 +148,10 @@ def attention_route(hd: int, k_size: Tuple[int, int], length: int,
 
     ``"vitl"``: the ViT-L kernels (K1 / K2) -- head_dim 64 within their
     rel-term limits (K1: kh + kw <= 190; K2: kh + kw <= 127, the raw
-    rel-term staging of its bf16 dq kernel, in both types, and in bf16 kw
-    in [10, 40]). ``"generic"``: K1g / K2g, every other shape of the JAX
-    kernel's domain ``hd + min(kh, kw) <= 128``. Raises outside it, with
-    the message of the JAX kernel's ``_fold_axis``.
+    rel-term staging of its bf16 dq kernel, in both types, in bf16 kw in
+    [10, 40] and in fp32 kw <= 48). ``"generic"``: K1g / K2g, every other
+    shape of the JAX kernel's domain ``hd + min(kh, kw) <= 128``. Raises
+    outside it, with the message of the JAX kernel's ``_fold_axis``.
     """
     if dtype not in _FWD_FUNCS:
         raise TypeError(f"flash_relpos takes bf16 or fp32, got {dtype}")
@@ -151,8 +163,8 @@ def attention_route(hd: int, k_size: Tuple[int, int], length: int,
         if not backward and k_h + k_w <= MAX_REL_ENTRIES:
             return "vitl"
         if backward and k_h + k_w <= BWD_MAX_REL_ENTRIES and (
-                dtype == torch.float32
-                or BWD_BF16_KW[0] <= k_w <= BWD_BF16_KW[1]):
+                k_w <= BWD_F32_KW_MAX if dtype == torch.float32
+                else BWD_BF16_KW[0] <= k_w <= BWD_BF16_KW[1]):
             return "vitl"
     if hd + min(k_h, k_w) <= MXU_LANES:
         return "generic"
