@@ -463,6 +463,8 @@ TAIL_SHAPES = (((2, 896, 448), FP32, (True,)),
                ((2, 16, 448), BF16, (True, False)),
                ((1, 1280, 640), FP32, (True,)))
 TAIL_MAIN_SHAPE = (2, 896, 448)
+# the fp32 tail's main path: the 1280x640 fp32 update at b1 (fused tail)
+PAINTER_1280_TAIL = (1, 1280, 640)
 # kernel vs plain, max abs error over max |plain| of each output. bf16:
 # both round at the same points (weights, GELU output, du, the outputs),
 # so they differ only where an fp32 sum in another order crosses a bf16
@@ -491,8 +493,11 @@ def _stock_tail(pix, w1, b1, lns, lnb, w2, b2, approx):
 
 def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False):
     """K3 and K4 (with ``generic``, K3g and K4g) against their plain
-    versions on one input of width ``c``; the rows of numbers of both."""
+    versions on one input of width ``c``; the rows of numbers of both. In
+    fp32 a profile checks that the 3xTF32 kernels ran, and each is timed
+    in turns with the stock tail."""
     from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
     fwd = dh.fused_decoder_tail_generic if generic else dh.fused_decoder_tail
     bwd = (dh.fused_decoder_tail_bwd_generic if generic
            else dh.fused_decoder_tail_bwd)
@@ -543,7 +548,24 @@ def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False):
     del got_g, ref_g
     n_pix = b * h * w
     es = pix.element_size()
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    if dtype == torch.float32 and dh.generic_tail_route(c, dtype) == "tc":
+        # the fp32 route (C = 64 and every generic "tc" width): the 3xTF32
+        # kernels of csrc/decoder_tail_tc_*.cu and no other tail kernel
+        # (two calls profiled: a profile can miss its first launches)
+        seen = list(device_ms_by_kernel(
+            lambda: (fwd(pix, *params, approx),
+                     bwd(pix, *params[:5], go, approx)), 2,
+            ("tc::", "hop::", "strip_kernel", "du_kernel<",
+             "dpix_kernel<")))
+        epis = (("FwdEpi<", "DuEpi<", "DpixEpi<")
+                if c <= dh.TC_ROW_CHANNELS_F32
+                else ("UEpi<", "row_fwd_kernel<", "row_bwd_kernel<"))
+        check(all(any(e in k and "float" in k for k in seen) for e in epis)
+              and any("dw1_tf32_kernel" in k for k in seen)
+              and any("pack_kernel<float>" in k for k in seen)
+              and all(k.startswith("tc::") and "bfloat16" not in k
+                      for k in seen),
+              f"fp32 tail {shape} C={c}: kernels {seen}")
     rows = {}
     for name, flops, nbytes, fn, plain, lib in (
             ("K3", 2 * n_pix * c * (9 * c + 3), n_pix * (c + 3) * es,
@@ -564,7 +586,6 @@ def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False):
 
             def lib(y=y, leaves=leaves):
                 return torch.autograd.grad(y, leaves, go, retain_graph=True)
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
         rows[name] = {
             "shape": list(shape), "dtype": str(dtype), "approx": approx,
             "c": c,
@@ -574,8 +595,11 @@ def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False):
             "device_ms": device_ms(fn, iters, names),
             "plain_ms": event_ms(plain, max(1, iters // 2)),
             "library_ms": event_ms(lib, iters), "flop": flops,
-            "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bytes": nbytes, **attention_bound(flops, nbytes, dtype)}
+        if dtype == torch.float32:
+            # the kernel and the stock tail (TF32 off) in turns
+            rows[name]["turns"] = turns({"kernel": fn, "stock": lib},
+                                        {"kernel": iters, "stock": iters})
         if name == "K4":
             del y, leaves
     rows["K4"]["rel_errs"] = k4_errs
@@ -617,9 +641,17 @@ def phase_tail(label):
                           + (f" (fwd+bwd {x['library_fwd_bwd_ms']:.4f})"
                              if name == "K4" else "")
                           + f" bound_ms {x['bound_ms']:.4f} "
-                          f"({x['flop']:.4e} FLOP, {x['bound_by']}) "
-                          f"[{label}]")
+                          f"({_bound_note(x, dtype)})"
+                          + (f"; in turns with the stock tail (TF32 off) "
+                             f"kernel {_ms_list(x['turns']['kernel'])} "
+                             f"stock {_ms_list(x['turns']['stock'])} "
+                             f"(3xTF32 route)" if "turns" in x else "")
+                          + f" [{label}]")
     return rows
+
+
+def _ms_list(times):
+    return " / ".join(f"{t:.4f}" for t in times)
 
 
 # K5 at the M (rows = batch x tokens) of the int8 serving paths: 12544 =
@@ -1004,8 +1036,9 @@ ORACLE_TOL = 1e-4
 PARITY_MODELS = ("seggpt_vit_large_patch16_input896x448",
                  "painter_vit_large_patch16_input896x448_windowed")
 # the component profile's chains in the smoke (the CLI keeps JAX's 16 /
-# 64 / 48 and 3 reps)
-TOOLS_N1, TOOLS_N2, TOOLS_REPS = 2, 6, 1
+# 64 / 48 and 3 reps); 2 reps, each length's time their minimum: with one,
+# a host stall of ~250 ms in a 2-chain made a slope negative on an H100
+TOOLS_N1, TOOLS_N2, TOOLS_REPS = 2, 6, 2
 TOOLS_FWD_KEYS = {"block_ms", "mlp_ms", "ln_ms", "qkv_proj_ms",
                   "flash_kernel_ms"}
 TOOLS_BWD_KEYS = {"block_ms", "attn_sub_ms", "mlp_sub_ms", "kernel_ms",
@@ -1166,7 +1199,7 @@ def phase_tools(model, label):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"# component profile, {PAINTER} b8 bf16, kernel attention, "
-          f"save_kernel, chains {TOOLS_N1} / {TOOLS_N2}, {TOOLS_REPS} rep: "
+          f"save_kernel, chains {TOOLS_N1} / {TOOLS_N2}, {TOOLS_REPS} reps: "
           f"FWD {json.dumps(fwd)} BWD {json.dumps(bwd)}; K1 launches "
           f"{k1_cp}, K2 {k2_cp} [{label}]")
     check(set(fwd) == TOOLS_FWD_KEYS and set(bwd) == TOOLS_BWD_KEYS,
@@ -3543,8 +3576,10 @@ GENERIC_TINY_SHAPE = (4, 16, (8, 4))
 # Widths that are not a multiple of 8, where the tensor-core route pads
 # the pixels to CD > C: 13 on 16x12 and 100 on 37x29 (split rows), 100 on
 # 140x70 (whole rows) and 517 on 8x40 (the N tiles and the row kernels).
-# bf16 at C >= 9 runs the tensor-core kernels (csrc/decoder_tail_tc_*.cu),
-# fp32 and bf16 at C = 8 the scalar ones (csrc/decoder_tail_generic.cu).
+# C >= 9 runs the tensor-core kernels (csrc/decoder_tail_tc_*.cu; fp32 in
+# 3xTF32), C = 8 the scalar ones (csrc/decoder_tail_generic.cu). In fp32
+# whole rows stop at 128 channels and split rows at 256: 160 and 256 run
+# split rows, 264, 517 and 520 the N tiles and the row kernels.
 GENERIC_TAIL_SHAPES = (((2, 16, 12), 8), ((2, 12, 8), 8), ((2, 64, 32), 8),
                        ((2, 37, 29), 40), ((1, 16, 16), 128),
                        ((2, 64, 32), 160), ((2, 64, 32), 256),
@@ -3706,18 +3741,28 @@ def phase_generic_tail(label):
                           f"{x['plain_ms']:.4f} library_ms(stock tail "
                           f"{'fwd' if name == 'K3g' else 'bwd'}, TF32 off) "
                           f"{x['library_ms']:.4f} bound_ms "
-                          f"{x['bound_ms']:.4f} ({x['flop']:.4e} FLOP, "
-                          f"{x['bound_by']}) [{label}]")
-    for c in (5, 40, 264):  # the packing launch against its plain version
+                          f"{x['bound_ms']:.4f} ({_bound_note(x, dtype)})"
+                          + (f"; in turns with the stock tail kernel "
+                             f"{_ms_list(x['turns']['kernel'])} stock "
+                             f"{_ms_list(x['turns']['stock'])}"
+                             if "turns" in x else "")
+                          + f" [{label}]")
+    # the packing launch against its plain version: bf16, and fp32 with
+    # W1 split into tf32 parts
+    for c, dtype in ((5, torch.bfloat16), (40, torch.bfloat16),
+                     (264, torch.bfloat16), (13, torch.float32),
+                     (64, torch.float32), (264, torch.float32)):
         g = torch.Generator(device="cuda").manual_seed(680 + c)
         params = _tail_params(c, g)
         cd = -(-c // dh.TC_STEP) * dh.TC_STEP
-        packed = dh._pack(torch.empty(1, 1, 1, c, device="cuda"), *params,
-                          cd)
-        check(torch.equal(packed, dh.pack_reference(*params, cd)),
-              f"the packing launch at C={c} differs from its plain version")
-    print(f"# K3g / K4g packing launch at C 5, 40, 264: bitwise equal to "
-          f"its plain version [{label}]")
+        packed = dh._pack(torch.empty(1, 1, 1, c, device="cuda",
+                                      dtype=dtype), *params, cd)
+        check(torch.equal(packed, dh.pack_reference(*params, cd, dtype)),
+              f"the packing launch at C={c} {dtype} differs from its plain "
+              f"version")
+    print(f"# K3g / K4g packing launch at C 5, 40, 264 bf16 and 13, 64, 264 "
+          f"fp32 (W1 split into tf32 parts): bitwise equal to its plain "
+          f"version [{label}]")
     shape, c = GENERIC_TAIL_BIG
     g = torch.Generator(device="cuda").manual_seed(690)
     pix = torch.randn(*shape, c, generator=g, device="cuda").to(
@@ -4359,12 +4404,17 @@ F32_KERNEL_NAMES = ("tc::fwd_kernel", "tc::dq_kernel", "tc::dkv_kernel")
 
 def train_1280_fp32_times(label):
     """ms per update of Painter ViT-L at 1280x640 in fp32 (b1 x accum 2,
-    save_kernel, the auto tail) on a device-resident batch: the warm-up
-    update launches K1 and K2 once per block per micro-batch on their
-    fp32 (3xTF32) route and no K1g-K4g, K3 or K4; the median of 3 updates
-    after it, and K1's and K2's device ms in one profiled update. Returns
-    (ms, K1 ms, K2 ms, K1 launches, K2 launches)."""
+    save_kernel) on a device-resident batch, with the auto (stock) tail and
+    with the fused tail (``decoder_impl="fused"``: K3 / K4 on their fp32
+    route, the 3xTF32 kernels of csrc/decoder_tail_tc_*.cu). The warm-up
+    update of each launches K1 and K2 once per block per micro-batch on
+    their fp32 (3xTF32) route, no K1g-K4g, and K3 / K4 once per
+    micro-batch with the fused tail only; then 3 updates of each in turns
+    (auto, fused, fused, auto, auto, fused), and K1's, K2's, K3's and K4's
+    device ms in one profiled fused update. Returns (auto ms, fused ms, K1
+    ms, K2 ms, K1 launches, K2 launches, K3 launches, K4 launches)."""
     from painter_tpu_torch import configs
+    from painter_tpu_torch.kernels import decoder_head as dh
     from painter_tpu_torch.train import optim
     from painter_tpu_torch.train import step as step_lib
     from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
@@ -4375,32 +4425,50 @@ def train_1280_fp32_times(label):
     model = _seeded_model(cfg, 41).train()
     opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
         warmup_epochs=0.0, steps_per_epoch=10))
-    step = step_lib.make_train_step(cfg, opt, accum_iter=2)
+    steps = {impl: step_lib.make_train_step(cfg, opt, accum_iter=2,
+                                            decoder_impl=impl)
+             for impl in ("auto", "fused")}
     batch = _train_batch(cfg, 1, seed=42, accum=2)
     gen = torch.Generator(device="cuda").manual_seed(43)
-    _zero_counts()
-    _timed_updates(step, model, batch, gen, 1)
-    vitl, generic = _read_counts()
-    want = (2 * cfg.depth, 2 * cfg.depth, 0, 0, 0)
-    check(vitl == want and generic == (0,) * 5,
-          f"the fp32 1280x640 update launched {vitl} {generic}, expected "
-          f"{want} and no generic kernel")
-    times = _timed_updates(step, model, batch, gen, 3)
-    by_kernel = device_ms_by_kernel(lambda: step(model, batch, gen), 1,
-                                    F32_KERNEL_NAMES)
-    k1 = sum(v for k, v in by_kernel.items() if "fwd_kernel" in k)
-    k2 = sum(v for k, v in by_kernel.items() if "fwd_kernel" not in k)
-    ms = 1e3 * statistics.median(times)
-    print(f"# ViT-L 1280x640 update (b1 x accum 2, fp32, save_kernel, auto "
-          f"tail): {ms:.2f} ms median of {[round(1e3 * x, 2) for x in times]}"
-          f"; launches K1 {vitl[0]} / K2 {vitl[1]} (fp32, 3xTF32); device "
-          f"time in one update K1 {k1:.2f} ms ({100 * k1 / ms:.1f}%), K2 "
-          f"{k2:.2f} ms ({100 * k2 / ms:.1f}%) "
+    counts = {}
+    for impl, step in steps.items():
+        _zero_counts()
+        _timed_updates(step, model, batch, gen, 1)
+        counts[impl] = _read_counts() + (_read_tc_counts(),)
+        tail = 2 if impl == "fused" else 0
+        want = (2 * cfg.depth, 2 * cfg.depth, tail, tail, 0)
+        check(counts[impl] == (want, (0,) * 5, (0, 0)),
+              f"the fp32 1280x640 update ({impl} tail) launched "
+              f"{counts[impl]}, expected {want} and no generic kernel")
+    times = {"auto": [], "fused": []}
+    for impl in ("auto", "fused", "fused", "auto", "auto", "fused"):
+        times[impl] += _timed_updates(steps[impl], model, batch, gen, 1)
+    by_kernel = device_ms_by_kernel(
+        lambda: steps["fused"](model, batch, gen), 1,
+        F32_KERNEL_NAMES + dh.TC_KERNEL_NAMES)
+    k1 = sum(v for k, v in by_kernel.items() if "tc::fwd_kernel" in k)
+    k2 = sum(v for k, v in by_kernel.items()
+             if "dq_kernel" in k or "dkv_kernel" in k)
+    k3 = sum(v for k, v in by_kernel.items() if "FwdEpi" in k)
+    k4 = sum(v for k, v in by_kernel.items()
+             if any(n in k for n in ("DuEpi", "DpixEpi", "dw1_tf32")))
+    ms = {impl: 1e3 * statistics.median(v) for impl, v in times.items()}
+    vitl = counts["fused"][0]
+    print(f"# ViT-L 1280x640 update (b1 x accum 2, fp32, save_kernel) in "
+          f"turns: auto tail {ms['auto']:.2f} ms median of "
+          f"{[round(1e3 * x, 2) for x in times['auto']]}, fused tail "
+          f"{ms['fused']:.2f} ms median of "
+          f"{[round(1e3 * x, 2) for x in times['fused']]}; launches per "
+          f"fused update K1 {vitl[0]} / K2 {vitl[1]} / K3 {vitl[2]} / K4 "
+          f"{vitl[3]} (fp32, 3xTF32); device time in one fused update K1 "
+          f"{k1:.2f} ms ({100 * k1 / ms['fused']:.1f}%), K2 {k2:.2f} ms "
+          f"({100 * k2 / ms['fused']:.1f}%), K3 {k3:.2f} ms, K4 {k4:.2f} ms "
           f"({', '.join(f'{k} {v:.2f}' for k, v in by_kernel.items())}) "
           f"[{label}]")
     del model, opt
     torch.cuda.empty_cache()
-    return ms, k1, k2, vitl[0], vitl[1]
+    return (ms["auto"], ms["fused"], k1, k2, vitl[0], vitl[1], vitl[2],
+            vitl[3])
 
 
 def timed(name, fn, *args):
@@ -4493,8 +4561,8 @@ def main():
     timed("gradient check 1280x640", phase_grad_check_1280, label)
     t1280 = timed("training drive 1280x640", phase_train_1280, label)
     timed("training times 1280x640", train_1280_times, label)
-    *_, f32_k1, f32_k2 = timed("fp32 training times 1280x640",
-                               train_1280_fp32_times, label)
+    *_, f32_k1, f32_k2, f32_k3, f32_k4 = timed(
+        "fp32 training times 1280x640", train_1280_fp32_times, label)
     infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1 + \
         dp_k1
     dist_k = (remat_k1 + nccl_k1 + gloo_k1 + fe_k1 + tools_k1,
@@ -4518,7 +4586,9 @@ def main():
           f"serving {fp32_k5}; ViT-L 1280x640 training (K1, "
           f"K2, K3, K4) {t1280}; fp32 (3xTF32) K1: SegGPT ViT-L fp32 "
           f"serving {fp32_serve_k1}, 1280x640 fp32 update {f32_k1}; fp32 "
-          f"K2: 1280x640 fp32 update {f32_k2}; tiny_test: K1g serving {tiny_k1g}, "
+          f"K2: 1280x640 fp32 update {f32_k2}; fp32 (3xTF32) K3 / K4: "
+          f"1280x640 fp32 fused update {f32_k3} / {f32_k4}; tiny_test: K1g "
+          f"serving {tiny_k1g}, "
           f"training (K1g, K2g, K3g, K4g) {tiny_gen}, decoder "
           f"{WIDE_DECODER} training (tensor-core K3g, K4g) ({wide_k3g}, "
           f"{wide_k4g}); ViT-L 896x448 decoder {WIDE_VITL_DECODER} training "
@@ -4528,6 +4598,9 @@ def main():
           f"{cli_tiny_k5g}")
     tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
                 TAIL_MAIN_SHAPE and r["K3"]["dtype"] == str(torch.bfloat16))
+    tail_f32 = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
+                    PAINTER_1280_TAIL and r["K3"]["dtype"] ==
+                    str(torch.float32))
     k5_row = next(r for r in k5_rows if r["m"] == K5_MAIN_M
                   and r["dtype"] == str(torch.bfloat16))
     k5g_row = next(r for r in k5g_rows if (
@@ -4568,6 +4641,12 @@ def main():
         _kernel_entry("decoder_tail_bwd",
                       "painter_tpu/kernels/decoder_head.py:304",
                       train_k4 + dist_k[3] + t1280[3], tail["K4"]),
+        _kernel_entry("decoder_tail_tc_fwd_f32",
+                      "painter_tpu/kernels/decoder_head.py:180", f32_k3,
+                      tail_f32["K3"], "decoder_tail_tc_fwd"),
+        _kernel_entry("decoder_tail_tc_bwd_f32",
+                      "painter_tpu/kernels/decoder_head.py:304", f32_k4,
+                      tail_f32["K4"], "decoder_tail_tc_bwd"),
         _kernel_entry("int8_mlp", "painter_tpu/kernels/int8_mlp.py:87",
                       serve_k5 + cli_k5 + eval_k5 + fp32_k5, k5_row),
         _kernel_entry("flash_relpos_generic_fwd",

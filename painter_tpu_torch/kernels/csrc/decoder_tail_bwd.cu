@@ -1,4 +1,4 @@
-// Fused decoder tail, backward (Hopper): recomputes the forward chain of
+// Fused decoder tail, backward (Hopper, bf16): recomputes the forward chain of
 // decoder_tail_fwd.cu and emits the complete input gradient plus fp32
 // partials of the six parameter gradients.
 //
@@ -55,9 +55,9 @@
 // No atomics and a static strip schedule: two runs give the same bits. The
 // three launches count as one call of the wrapper.
 //
-// The fp32 route is scalar (one CTA per 14 x 14 output tile over a halo,
-// FMAs from shared memory, weights through L1): it exists for tight fp32
-// comparisons, not speed.
+// The fp32 route at C = 64 runs the tensor-core kernels of
+// decoder_tail_tc_bwd.cu in 3xTF32 (kernels/decoder_head.py
+// fused_decoder_tail_bwd): this file is bf16 only.
 //
 // The launchers allocate nothing and do not synchronize: the bf16 one takes
 // a (B, H, W, 64) bf16 scratch for du. They return cudaGetLastError() so
@@ -65,267 +65,6 @@
 // the partial buffers' sizes, so the tiling is decided here alone.
 
 #include "decoder_tail_hopper.cuh"
-
-namespace {
-
-// ---------------------------------------------------------------------------
-// fp32: the scalar route
-// ---------------------------------------------------------------------------
-
-using namespace dtail;
-
-constexpr int TO = 14;             // output pixels per tile side
-constexpr int DH = TO + 2;         // du rows / columns of a tile (16)
-constexpr int DW = TO + 4;         // du buffer width: dpix reads 2 more
-constexpr int PH = TO + 4, PW = TO + 4;  // pixels with the two-pixel halo
-constexpr int TPC = 4;             // tiles per CTA (down the image)
-constexpr int PRM = 3 * C + 3 * C; // b1, ln scale, ln bias, W2 (C, 3)
-constexpr int SMALL = 6 * C + 3;   // db1, dln scale, dln bias, dW2, db2
-
-constexpr size_t SMEM_BYTES =
-    ((size_t)PH * PW * LD + (size_t)DH * DW * LD + (size_t)WARPS * 16 * LDE
-     + (size_t)DH * DH * 3 + PRM) * sizeof(float);
-
-__global__ void __launch_bounds__(THREADS, 1)
-decoder_tail_bwd_kernel(const float* __restrict__ pix,
-                        const float* __restrict__ go,
-                        const float* __restrict__ w1,
-                        const float* __restrict__ b1,
-                        const float* __restrict__ lns,
-                        const float* __restrict__ lnb,
-                        const float* __restrict__ w2, float* __restrict__ dpix,
-                        float* __restrict__ dw1_part,
-                        float* __restrict__ small_part, int H, int W,
-                        int approx_i) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ps = reinterpret_cast<float*>(smem);   // PH*PW pixels
-  float* Ds = Ps + PH * PW * LD;                // DH*DW du values
-  float* Es = Ds + DH * DW * LD;
-  float* Gs = Es + WARPS * 16 * LDE;            // DH*DH*3 upstream grads
-  float* Prm = Gs + DH * DH * 3;
-  float* B1 = Prm;
-  float* LNS = B1 + C;
-  float* LNB = LNS + C;
-  float* W2 = LNB + C;  // (C, 3)
-
-  const bool approx = approx_i != 0;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int b = blockIdx.z;
-  const int x0 = blockIdx.x * TO;
-  const size_t cta =
-      ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  const float* img = pix + (size_t)b * H * W * C;
-  const float* gimg = go + (size_t)b * H * W * 3;
-  float* dw1 = dw1_part + cta * 9 * C * C;  // (tap, c, o)
-
-  for (int i = tid; i < C; i += THREADS) {
-    B1[i] = b1[i];
-    LNS[i] = lns[i];
-    LNB[i] = lnb[i];
-  }
-  for (int i = tid; i < 3 * C; i += THREADS) W2[i] = w2[i];
-  float* Ew = Es + warp * 16 * LDE;
-  const int c0 = 2 * lane;
-
-  // this lane's parameter partials (channels c0, c0 + 1)
-  float p_db1[2] = {0.f, 0.f}, p_dlns[2] = {0.f, 0.f}, p_dlnb[2] = {0.f, 0.f};
-  float p_dw2[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  float p_db2[3] = {0.f, 0.f, 0.f};
-
-  for (int t = 0; t < TPC; ++t) {
-    const int y0 = (blockIdx.y * TPC + t) * TO;
-    if (y0 >= H) break;
-    __syncthreads();  // the previous tile's buffers are consumed
-    load_pixels(Ps, img, H, W, y0 - 2, x0 - 2, PH, PW);
-    for (int i = tid; i < DH * DH * 3; i += THREADS) {
-      const int p = i / 3;
-      const int y = y0 - 1 + p / DH, x = x0 - 1 + p % DH;
-      Gs[i] = (y >= 0 && y < H && x >= 0 && x < W)
-          ? gimg[((size_t)y * W + x) * 3 + i % 3] : 0.f;
-    }
-    for (int i = tid; i < DH * (DW - DH) * C; i += THREADS) {
-      const int row = i / ((DW - DH) * C);
-      const int rest = i % ((DW - DH) * C);
-      Ds[(row * DW + DH + rest / C) * LD + rest % C] = 0.f;
-    }
-    __syncthreads();
-
-    // A: recompute the forward chain and form du over the 16 x 16 halo
-    for (int i = warp; i < DH; i += WARPS) {
-      const int y = y0 - 1 + i;
-      const bool row_in = y >= 0 && y < H;
-      const bool row_own = i >= 1 && i <= TO;
-      if (row_in) {
-        Acc acc[4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) zero(acc[n]);
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap % 3;
-          const float* a = Ps + ((i + dy) * PW + dx) * LD;
-          const float* wt = w1 + tap * C * C;
-#pragma unroll
-          for (int cb = 0; cb < 4; ++cb)
-            mma16x64<true, true>(acc, a + cb * 16, LD, wt + cb * 16 * C, C,
-                                 16, lane);
-        }
-#pragma unroll
-        for (int n = 0; n < 4; ++n) store(Ew + n * 16, LDE, acc[n], lane);
-      }
-      __syncwarp();
-      for (int j = 0; j < DH; ++j) {
-        float* dst = Ds + (i * DW + j) * LD + c0;
-        const int x = x0 - 1 + j;
-        if (!row_in || x < 0 || x >= W) {
-          dst[0] = dst[1] = 0.f;
-          continue;
-        }
-        float xh[2], dn[2], dxh[2], g[2];
-        const float u0 = Ew[j * LDE + c0] + B1[c0];
-        const float u1 = Ew[j * LDE + c0 + 1] + B1[c0 + 1];
-        const float mean = warp_sum(u0 + u1) / C;
-        const float d0 = u0 - mean, d1 = u1 - mean;
-        const float var = warp_sum(d0 * d0 + d1 * d1) / C;
-        const float rstd = rsqrtf(var + LN_EPS);
-        xh[0] = d0 * rstd;
-        xh[1] = d1 * rstd;
-        const float* gp = Gs + (i * DH + j) * 3;
-        const float go0 = gp[0], go1 = gp[1], go2 = gp[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = c0 + h;
-          const float n = xh[h] * LNS[c] + LNB[c];
-          g[h] = gelu(n, approx);
-          const float dg = go0 * W2[c * 3] + go1 * W2[c * 3 + 1]
-              + go2 * W2[c * 3 + 2];
-          dn[h] = dg * gelu_grad(n, approx);
-          dxh[h] = dn[h] * LNS[c];
-        }
-        const float mx = warp_sum(dxh[0] + dxh[1]) / C;
-        const float mxx = warp_sum(dxh[0] * xh[0] + dxh[1] * xh[1]) / C;
-        const float du0 = rstd * (dxh[0] - mx - xh[0] * mxx);
-        const float du1 = rstd * (dxh[1] - mx - xh[1] * mxx);
-        dst[0] = du0;
-        dst[1] = du1;
-        if (row_own && j >= 1 && j <= TO) {
-          p_db1[0] += du0;
-          p_db1[1] += du1;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            p_dlns[h] += dn[h] * xh[h];
-            p_dlnb[h] += dn[h];
-            p_dw2[h][0] += g[h] * go0;
-            p_dw2[h][1] += g[h] * go1;
-            p_dw2[h][2] += g[h] * go2;
-          }
-          p_db2[0] += go0;
-          p_db2[1] += go1;
-          p_db2[2] += go2;
-        }
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-
-    // B: dpix of the tile's own rows, du convolved with the rotated kernel
-    // (W1 read transposed: column-major (o, c) from the (c, o) rows)
-    for (int a = warp; a < TO; a += WARPS) {
-      const int y = y0 + a;
-      if (y >= H) break;
-      Acc acc[4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) zero(acc[n]);
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        const float* src = Ds + ((a + 2 - dy) * DW + (2 - dx)) * LD;
-        const float* wt = w1 + tap * C * C;
-#pragma unroll
-        for (int ob = 0; ob < 4; ++ob)
-          mma16x64<true, false>(acc, src + ob * 16, LD, wt + ob * 16, C,
-                                16 * C, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n) store(Ew + n * 16, LDE, acc[n], lane);
-      __syncwarp();
-      for (int j = 0; j < TO; ++j) {
-        const int x = x0 + j;
-        if (x >= W) break;
-        float* dst = dpix + ((size_t)(b * H + y) * W + x) * C + c0;
-        dst[0] = Ew[j * LDE + c0];
-        dst[1] = Ew[j * LDE + c0 + 1];
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-
-    // C: dW1 from the tile's own du only: zero the halo columns (rows 0 and
-    // 15 are left out by the loop), then pix^T . du per (tap, c block)
-    for (int i = tid; i < DH * 2 * C; i += THREADS) {
-      const int row = i / (2 * C);
-      const int col = (i / C) % 2 ? DH - 1 : 0;
-      Ds[(row * DW + col) * LD + i % C] = 0.f;
-    }
-    __syncthreads();
-    for (int pair = warp; pair < 9 * 4; pair += WARPS) {
-      const int tap = pair / 4, cb = pair % 4;
-      const int dy = tap / 3, dx = tap % 3;
-      float* dst = dw1 + (tap * C + cb * 16) * C;
-      Acc acc[4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        if (t == 0) zero(acc[n]);
-        else load(acc[n], dst + n * 16, C, lane);
-      }
-      for (int i = 1; i <= TO; ++i)
-        mma16x64<false, true>(acc, Ps + ((i + dy) * PW + dx) * LD + cb * 16,
-                              LD, Ds + i * DW * LD, LD, 16, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) store(dst + n * 16, C, acc[n], lane);
-    }
-  }
-
-  float* sp = small_part + (cta * WARPS + warp) * SMALL;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    sp[c0 + h] = p_db1[h];
-    sp[C + c0 + h] = p_dlns[h];
-    sp[2 * C + c0 + h] = p_dlnb[h];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) sp[3 * C + (c0 + h) * 3 + k] = p_dw2[h][k];
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) sp[6 * C + k] = p_db2[k];
-  }
-}
-
-dim3 grid_of(int B, int H, int W) {
-  const int tiles_y = (H + TO - 1) / TO;
-  return dim3((W + TO - 1) / TO, (tiles_y + TPC - 1) / TPC, B);
-}
-
-int launch_f32(const void* pix, const void* go, const void* w1,
-               const void* b1, const void* lns, const void* lnb,
-               const void* w2, void* dpix, void* dw1_part, void* small_part,
-               int B, int H, int W, int approx, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_tail_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid = grid_of(B, H, W);
-  decoder_tail_bwd_kernel<<<grid, THREADS, SMEM_BYTES,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pix), static_cast<const float*>(go),
-      static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(lns), static_cast<const float*>(lnb),
-      static_cast<const float*>(w2), static_cast<float*>(dpix),
-      static_cast<float*>(dw1_part), static_cast<float*>(small_part), H, W,
-      approx);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 // ---------------------------------------------------------------------------
 // bf16: the du and dpix strip epilogues and the dW1 launch
@@ -757,33 +496,18 @@ int decoder_tail_bwd_bf16(const void* pix, const void* go, const void* w1,
                      static_cast<cudaStream_t>(stream));
 }
 
-// du is not used: the scalar route keeps it on the SM
-int decoder_tail_bwd_f32(const void* pix, const void* go, const void* w1,
-                         const void* b1, const void* lns, const void* lnb,
-                         const void* w2, void* dpix, void* dw1_part,
-                         void* small_part, void*, int B, int H, int W,
-                         int approx, void* stream) {
-  return launch_f32(pix, go, w1, b1, lns, lnb, w2, dpix, dw1_part,
-                    small_part, B, H, W, approx, stream);
-}
-
-// The fp32 partial buffers the bf16 (bf16 != 0) or fp32 launch writes, as
-// (rows, columns): shape[0:2] for dW1 (one (tap, c, o) set per CTA),
-// shape[2:4] for the small sums (one row of SMALL per warp). The caller
-// allocates from these.
+// The fp32 partial buffers the launch writes, as (rows, columns):
+// shape[0:2] for dW1 (one (tap, c, o) set per CTA), shape[2:4] for the
+// small sums (one row of SMALL per warp). The caller allocates from these.
+// (bf16 is 1: the file is bf16 only; the argument keeps the signature that
+// other builds of the file share.)
 void decoder_tail_bwd_partials(int B, int H, int W, int bf16, int* shape) {
-  if (bf16) {
-    const int grid = hop::persistent_grid(hop::strips_of(B, H, W));
-    shape[0] = grid;
-    shape[2] = grid * 8;
-  } else {
-    const dim3 grid = grid_of(B, H, W);
-    const int ctas = (int)(grid.x * grid.y * grid.z);
-    shape[0] = ctas;
-    shape[2] = ctas * WARPS;
-  }
-  shape[1] = 9 * C * C;
-  shape[3] = SMALL;
+  (void)bf16;
+  const int grid = hop::persistent_grid(hop::strips_of(B, H, W));
+  shape[0] = grid;
+  shape[2] = grid * 8;
+  shape[1] = 9 * hop::C * hop::C;
+  shape[3] = hop::SMALL;
 }
 
 const char* decoder_tail_bwd_error_string(int code) {

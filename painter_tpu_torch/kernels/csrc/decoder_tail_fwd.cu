@@ -1,4 +1,4 @@
-// Fused decoder tail, forward (Hopper): conv3x3 + bias -> LayerNorm ->
+// Fused decoder tail, forward (Hopper, bf16): conv3x3 + bias -> LayerNorm ->
 // GELU -> conv1x1 + bias, one pass, only the 3 output channels written.
 //
 // Replaces the TPU kernel painter_tpu/kernels/decoder_head.py:_fwd_impl
@@ -43,132 +43,14 @@
 // which the 6 W-byte rows break at widths such as W = 29). No atomics and a
 // static schedule: two runs give the same bits.
 //
-// The fp32 route is scalar: one CTA of 8 warps per 16 x 16 output tile over
-// an 18 x 18 halo in shared memory, FMAs with the weights read through L1.
-// It exists for tight fp32 comparisons, not speed.
+// The fp32 route at C = 64 runs the tensor-core kernels of
+// decoder_tail_tc_fwd.cu in 3xTF32 (kernels/decoder_head.py
+// fused_decoder_tail): this file is bf16 only.
 //
 // The launchers allocate nothing and do not synchronize; they return
 // cudaGetLastError() so the caller can raise on a refused launch.
 
 #include "decoder_tail_hopper.cuh"
-
-namespace {
-
-// ---------------------------------------------------------------------------
-// fp32: the scalar route
-// ---------------------------------------------------------------------------
-
-using namespace dtail;
-
-constexpr int TH = 16, TW = 16;          // output pixels per CTA
-constexpr int PH = TH + 2, PW = TW + 2;  // with the one-pixel halo
-constexpr int PRM = 3 * C + 3 * C + 3;   // b1, ln scale, ln bias, W2, b2
-constexpr int PRM_PAD = (PRM + 7) / 8 * 8;
-constexpr size_t SMEM_BYTES =
-    ((size_t)PH * PW * LD + (size_t)WARPS * 16 * LDE + PRM_PAD) *
-    sizeof(float);
-
-__global__ void __launch_bounds__(THREADS, 1)
-decoder_tail_fwd_kernel(const float* __restrict__ pix,
-                        const float* __restrict__ w1,
-                        const float* __restrict__ b1,
-                        const float* __restrict__ lns,
-                        const float* __restrict__ lnb,
-                        const float* __restrict__ w2,
-                        const float* __restrict__ b2, float* __restrict__ out,
-                        int H, int W, int approx_i) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ps = reinterpret_cast<float*>(smem);  // PH*PW pixels
-  float* Es = Ps + PH * PW * LD;               // WARPS*16 rows
-  float* Prm = Es + WARPS * 16 * LDE;
-  float* B1 = Prm;
-  float* LNS = B1 + C;
-  float* LNB = LNS + C;
-  float* W2 = LNB + C;   // (C, 3)
-  float* B2 = W2 + 3 * C;
-
-  const bool approx = approx_i != 0;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
-  const float* img = pix + (size_t)b * H * W * C;
-
-  load_pixels(Ps, img, H, W, y0 - 1, x0 - 1, PH, PW);
-  for (int i = tid; i < C; i += THREADS) {
-    B1[i] = b1[i];
-    LNS[i] = lns[i];
-    LNB[i] = lnb[i];
-  }
-  for (int i = tid; i < 3 * C; i += THREADS) W2[i] = w2[i];
-  if (tid < 3) B2[tid] = b2[tid];
-  __syncthreads();
-
-  float* Ew = Es + warp * 16 * LDE;
-  const int c0 = 2 * lane;  // this lane's two channels in the epilogue
-
-  for (int r = warp; r < TH; r += WARPS) {
-    const int y = y0 + r;
-    if (y >= H) break;
-    Acc acc[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) zero(acc[n]);
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const float* a = Ps + ((r + dy) * PW + dx) * LD;
-      const float* wt = w1 + tap * C * C;
-#pragma unroll
-      for (int cb = 0; cb < 4; ++cb)
-        mma16x64<true, true>(acc, a + cb * 16, LD, wt + cb * 16 * C, C, 16,
-                             lane);
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) store(Ew + n * 16, LDE, acc[n], lane);
-    __syncwarp();
-
-    for (int j = 0; j < TW; ++j) {
-      const int x = x0 + j;
-      if (x >= W) break;
-      const float u0 = Ew[j * LDE + c0] + B1[c0];
-      const float u1 = Ew[j * LDE + c0 + 1] + B1[c0 + 1];
-      const float mean = warp_sum(u0 + u1) / C;
-      const float d0 = u0 - mean, d1 = u1 - mean;
-      const float var = warp_sum(d0 * d0 + d1 * d1) / C;
-      const float rstd = rsqrtf(var + LN_EPS);
-      const float g0 = gelu(d0 * rstd * LNS[c0] + LNB[c0], approx);
-      const float g1 = gelu(d1 * rstd * LNS[c0 + 1] + LNB[c0 + 1], approx);
-      float o[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        o[k] = warp_sum(g0 * W2[c0 * 3 + k] + g1 * W2[(c0 + 1) * 3 + k]);
-      if (lane < 3)
-        out[((size_t)(b * H + y) * W + x) * 3 + lane] = o[lane] + B2[lane];
-    }
-    __syncwarp();
-  }
-}
-
-int launch_f32(const void* pix, const void* w1, const void* b1,
-               const void* lns, const void* lnb, const void* w2,
-               const void* b2, void* out, int B, int H, int W, int approx,
-               void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_tail_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  decoder_tail_fwd_kernel<<<grid, THREADS, SMEM_BYTES,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pix), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(lns),
-      static_cast<const float*>(lnb), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(out), H, W, approx);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 // ---------------------------------------------------------------------------
 // bf16: the forward epilogue on the strip mainloop
@@ -343,14 +225,6 @@ int decoder_tail_fwd_bf16(const void* pix, const void* w1, const void* b1,
                           int approx, void* stream) {
   return hop::launch(pix, w1, b1, lns, lnb, w2, b2, out, B, H, W, approx,
                      static_cast<cudaStream_t>(stream));
-}
-
-int decoder_tail_fwd_f32(const void* pix, const void* w1, const void* b1,
-                         const void* lns, const void* lnb, const void* w2,
-                         const void* b2, void* out, int B, int H, int W,
-                         int approx, void* stream) {
-  return launch_f32(pix, w1, b1, lns, lnb, w2, b2, out, B, H, W, approx,
-                    stream);
 }
 
 const char* decoder_tail_fwd_error_string(int code) {

@@ -2,14 +2,15 @@
 forward (K3) and backward (K4).
 
 Hand-written CUDA kernels replace the TPU kernels of
-``painter_tpu/kernels/decoder_head.py``: ``csrc/decoder_tail_fwd.cu``
+``painter_tpu/kernels/decoder_head.py``: in bf16 ``csrc/decoder_tail_fwd.cu``
 (``_fwd_impl``) and ``csrc/decoder_tail_bwd.cu`` (``_bwd_impl``) at the
-presets' C = 64, ``csrc/decoder_tail_tc_fwd.cu`` /
-``decoder_tail_tc_bwd.cu`` (bf16) and ``csrc/decoder_tail_generic.cu``
-(fp32, and bf16 at C <= 8) at other widths. Their headers state the
-contracts, what bounds them on an H100 and what their designs do about
-that. The TPU kernel's layout devices (128-lane channel padding, the
-row-block choice, the dx/dy-packed contraction) are not carried over.
+presets' C = 64; ``csrc/decoder_tail_tc_fwd.cu`` / ``decoder_tail_tc_bwd.cu``
+(a tensor-core implicit GEMM: bf16, or 3xTF32 in fp32) at every other C >= 9
+and, in fp32, at C = 64 too; ``csrc/decoder_tail_generic.cu`` (scalar) at
+C <= 8. Their headers state the contracts, what bounds them on an H100 and
+what their designs do about that. The TPU kernel's layout devices
+(128-lane channel padding, the row-block choice, the dx/dy-packed
+contraction) are not carried over.
 
 Both follow the JAX kernel's rounding points, not the stock tail's: the
 conv weights and the four row vectors (conv1 bias, LN scale and bias,
@@ -34,19 +35,19 @@ Weights are in the torch layout: conv1 (C, C, 3, 3) (``decoder_pred.0``),
 conv2 (3, C, 1, 1) (``decoder_pred.3``); pixels and outputs NHWC.
 
 Widths. :func:`decoder_route` sends a width, by its shape alone, to the
-kernels built for the presets' C = 64 (``"vitl"``: any H and W) or to
-the width-generic kernels K3g / K4g (``"generic"``: every other C >= 1, as
+kernels the presets' C = 64 runs on (``"vitl"``: any H and W; K3 / K4,
+whose fp32 route launches the tensor-core kernels in 3xTF32) or to the
+width-generic kernels K3g / K4g (``"generic"``: every other C >= 1, as
 the JAX kernel takes any C). :func:`generic_tail_route` picks K3g / K4g's
-route by shape and type: ``"tc"`` (bf16 at C >= 9: the tensor-core
+route by shape and type: ``"tc"`` (C >= 9 in bf16 and fp32: the tensor-core
 implicit GEMM of ``csrc/decoder_tail_tc_fwd.cu`` / ``decoder_tail_tc_bwd.cu``,
 the pixels read unpadded where C % 8 == 0, the parameters packed by one
-launch; past 512 channels u in an fp32 scratch) or ``"scalar"``
-(``csrc/decoder_tail_generic.cu``: fp32 at every width and bf16 at C <= 8,
-zero-padded to 8, 16, 32, 64 or 128 channels, past 128 to a multiple of 8
-with the input channels staged in chunks and u in an fp32 scratch);
+launch, in fp32 with W1 split into big and small tf32 parts; past 512
+channels in bf16, 256 in fp32, u in an fp32 scratch) or ``"scalar"``
+(``csrc/decoder_tail_generic.cu`` at C <= 8, zero-padded to 8 channels);
 :func:`generic_channels` gives the padded width. LayerNorm runs over the
-real C. Each route counts its own launches: ``fused_decoder_tail.launches`` /
-``fused_decoder_tail_bwd.launches`` the C = 64 kernels,
+real C. Each route counts its own launches: ``fused_decoder_tail.launches``
+/ ``fused_decoder_tail_bwd.launches`` the C = 64 kernels (both types),
 ``fused_decoder_tail_generic.launches`` /
 ``fused_decoder_tail_bwd_generic.launches`` the generic ones on the scalar
 route, ``fused_decoder_tail_tc.launches`` /
@@ -64,35 +65,33 @@ from painter_tpu_torch.kernels import build
 
 LN_EPS = 1e-6
 CHANNELS = 64  # the ViT-L kernels are built for the presets' decoder width
-# the widths K3g / K4g are built for up to 128 channels; other widths up
-# to 128 are zero-padded to the next, wider ones to a multiple of
-# WIDE_STEP (the chunked route of csrc/decoder_tail_generic.cu)
-GENERIC_CHANNELS = (8, 16, 32, 64, 128)
-WIDE_STEP = 8
-# bf16 widths from TC_MIN_CHANNELS on go to the tensor-core route
-# (csrc/decoder_tail_tc_*.cu; C = 64 goes to K3 / K4 first); past
-# TC_ROW_CHANNELS its u goes through an fp32 scratch. Below it the scalar
-# kernels stay: at tiny_test's (2, 64, 32, 8) in bf16 they took 0.0125 /
-# 0.0334 ms of device time (K3g / K4g, tanh, with the packing launch)
-# where the tensor-core kernels took 0.0190 / 0.0420, the event time per
-# call being the wrapper's host work on both (H100 80GB HBM3, 700 W, in
-# turns; PERF.md section 6)
+# the width the scalar K3g / K4g are built for (C <= 8, zero-padded to it)
+SCALAR_CHANNELS = 8
+# widths from TC_MIN_CHANNELS on go to the tensor-core route
+# (csrc/decoder_tail_tc_*.cu; bf16 C = 64 goes to K3 / K4 first); past
+# TC_ROW_CHANNELS (bf16) / TC_ROW_CHANNELS_F32 its u goes through an fp32
+# scratch. Below it the scalar kernels stay: at tiny_test's (2, 64, 32, 8)
+# in bf16 they took 0.0125 / 0.0334 ms of device time (K3g / K4g, tanh,
+# with the packing launch) where the tensor-core kernels took 0.0190 /
+# 0.0420, the event time per call being the wrapper's host work on both
+# (H100 80GB HBM3, 700 W, in turns; PERF.md section 6)
 TC_MIN_CHANNELS = 9
 TC_ROW_CHANNELS = 512
+TC_ROW_CHANNELS_F32 = 256  # fp32 warpgroups stop at N = 128
 TC_STEP = 8  # the tensor-core route's channel padding (16-byte rows)
-# pixels per partial row of the chunked route's dW1 (at most WIDE_SLICES
-# rows)
-WIDE_SLICE_PIXELS = 4096
-WIDE_SLICES = 64
-# K3's and K4's device kernels, as the profiler names them
-KERNEL_NAMES = ("strip_kernel", "dw1_kernel", "decoder_tail_fwd_kernel",
-                "decoder_tail_bwd_kernel")
+TC_TILE = 64  # pixels per unit: du^T's image rows are padded to it (fp32)
+# K3's and K4's device kernels, as the profiler names them (bf16: the strip
+# kernels; fp32: the tensor-core route's)
+KERNEL_NAMES = ("strip_kernel", "dw1_kernel", "tc::conv_kernel<",
+                "tc::dw1_tf32_kernel", "tc::pack_kernel", "tc::row_")
 # K3g's and K4g's device kernels (templates), as the profiler names them
 GENERIC_KERNEL_NAMES = ("fwd_kernel<", "du_kernel<", "dpix_kernel<",
-                        "dw1_kernel<", "conv_kernel<", "pack_kernel")
+                        "dw1_kernel<", "conv_kernel<", "pack_kernel",
+                        "dw1_tf32_kernel")
 # the tensor-core route's alone (K1's forward kernel is a fwd_kernel< too)
 TC_KERNEL_NAMES = ("tc::pack_kernel", "tc::conv_kernel<", "tc::dw1_kernel<",
-                   "tc::row_fwd_kernel<", "tc::row_bwd_kernel<")
+                   "tc::dw1_tf32_kernel", "tc::row_fwd_kernel<",
+                   "tc::row_bwd_kernel<")
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -222,30 +221,20 @@ def decoder_route(c: int, dtype: torch.dtype) -> str:
 
 def generic_tail_route(c: int, dtype: torch.dtype) -> str:
     """K3g / K4g's route for a width :func:`decoder_route` sends to them,
-    by shape and type alone: ``"tc"`` (bf16 at C >= ``TC_MIN_CHANNELS``,
-    the tensor-core kernels) or ``"scalar"`` (fp32, and bf16 at C <= 8:
+    by shape and type alone: ``"tc"`` (C >= ``TC_MIN_CHANNELS`` in bf16 and
+    fp32, the tensor-core kernels) or ``"scalar"`` (C <= 8:
     ``csrc/decoder_tail_generic.cu``). Raises as decoder_route."""
     decoder_route(c, dtype)
-    if dtype == torch.bfloat16 and c >= TC_MIN_CHANNELS:
-        return "tc"
-    return "scalar"
+    return "tc" if c >= TC_MIN_CHANNELS else "scalar"
 
 
 def generic_channels(c: int, dtype: torch.dtype = torch.float32) -> int:
     """The width K3g / K4g run ``c`` channels at: on the tensor-core route
-    ``c`` rounded up to a multiple of ``TC_STEP``; on the scalar route the
-    next built width up to 128, past that ``c`` rounded up to a multiple
-    of ``WIDE_STEP``."""
+    ``c`` rounded up to a multiple of ``TC_STEP``; on the scalar route
+    ``SCALAR_CHANNELS``."""
     if generic_tail_route(c, dtype) == "tc":
         return -(-c // TC_STEP) * TC_STEP
-    if c <= GENERIC_CHANNELS[-1]:
-        return next(n for n in GENERIC_CHANNELS if n >= c)
-    return -(-c // WIDE_STEP) * WIDE_STEP
-
-
-def wide_slices(n_pixels: int) -> int:
-    """Rows of the chunked route's dW1 partial for ``n_pixels`` pixels."""
-    return max(1, min(WIDE_SLICES, -(-n_pixels // WIDE_SLICE_PIXELS)))
+    return SCALAR_CHANNELS
 
 
 def _check_pix(pix, *more) -> str:
@@ -295,8 +284,9 @@ def fused_decoder_tail(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b,
     """Fused tail forward (B, H, W, C) -> (B, H, W, 3) in pix.dtype.
 
     A CPU tensor runs the plain version; a CUDA tensor launches K3 on the
-    current stream or raises. Not differentiable: :func:`decoder_tail_fn`
-    is.
+    current stream or raises: in bf16 ``csrc/decoder_tail_fwd.cu``'s
+    kernel, in fp32 the packing launch and ``csrc/decoder_tail_tc_fwd.cu``'s
+    3xTF32 kernel. Not differentiable: :func:`decoder_tail_fn` is.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
@@ -306,6 +296,11 @@ def fused_decoder_tail(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b,
                   conv2_b) == "generic":
         return fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
                                           conv2_w, conv2_b, approximate)
+    if pix.dtype == torch.float32:
+        out = _tc_forward(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                          conv2_b, approximate)
+        fused_decoder_tail.launches += 1
+        return out
     pix = pix.contiguous()
     w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
                                           conv2_w)
@@ -313,8 +308,7 @@ def fused_decoder_tail(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b,
     b, h, w, _ = pix.shape
     out = torch.empty((b, h, w, 3), dtype=pix.dtype, device=pix.device)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _fn("decoder_tail_fwd", f"decoder_tail_fwd_{_DTYPES[pix.dtype]}",
-             8, 4)(pix.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+    rc = _fn("decoder_tail_fwd", "decoder_tail_fwd_bf16", 8, 4)(pix.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                    lns.data_ptr(), lnb.data_ptr(), w2.data_ptr(),
                    b2.data_ptr(), out.data_ptr(), b, h, w,
                    int(bool(approximate)), stream)
@@ -334,12 +328,12 @@ def _partials_fn():
     return fn
 
 
-def _bwd_partial_shapes(b: int, h: int, w: int, dtype: torch.dtype):
-    """K4's fp32 partial buffers at (b, h, w) for ``dtype``, as its source
-    sizes them: ((sets, 9 C C) for dW1, (rows, 6 C + 3) for db1, dLN scale,
+def _bwd_partial_shapes(b: int, h: int, w: int):
+    """bf16 K4's fp32 partial buffers at (b, h, w), as its source sizes
+    them: ((sets, 9 C C) for dW1, (rows, 6 C + 3) for db1, dLN scale,
     dLN bias, dW2 (C, 3) and db2)."""
     shape = (ctypes.c_int * 4)()
-    _partials_fn()(b, h, w, int(dtype == torch.bfloat16), shape)
+    _partials_fn()(b, h, w, 1, shape)
     return (shape[0], shape[1]), (shape[2], shape[3])
 
 
@@ -352,9 +346,11 @@ def fused_decoder_tail_bwd(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
     current stream or raises. K4 writes dpix whole and per-CTA fp32
     partials of the parameter gradients; one ``torch.sum`` over the
     partials finishes them, as the JAX package sums its per-block
-    partials in XLA. In bf16 K4 is three launches (du, dpix, dW1) that
-    pass ``du`` through a scratch tensor; they count as one call in
-    ``fused_decoder_tail_bwd.launches``.
+    partials in XLA. In bf16 K4 is three launches of
+    ``csrc/decoder_tail_bwd.cu`` (du, dpix, dW1) that pass ``du`` through
+    a scratch tensor; in fp32 the packing launch and the three 3xTF32
+    launches of ``csrc/decoder_tail_tc_bwd.cu``. Either counts as one call
+    in ``fused_decoder_tail_bwd.launches``.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_bwd_reference(
@@ -365,29 +361,30 @@ def fused_decoder_tail_bwd(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
         return fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w,
                                               ln_b, conv2_w, grad_out,
                                               approximate)
+    _check_grad_out(pix, grad_out)
+    if pix.dtype == torch.float32:
+        grads = _tc_backward(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                             grad_out, approximate)
+        fused_decoder_tail_bwd.launches += 1
+        return grads
     pix = pix.contiguous()
     b, h, w, c = pix.shape
-    if tuple(grad_out.shape) != (b, h, w, 3):
-        raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}, "
-                         f"expected {(b, h, w, 3)}")
     go = grad_out.to(pix.dtype).contiguous()
     w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b,
                                           conv2_w)
-    dw1_shape, small_shape = _bwd_partial_shapes(b, h, w, pix.dtype)
+    dw1_shape, small_shape = _bwd_partial_shapes(b, h, w)
     dpix = torch.empty_like(pix)
-    # bf16: du (rounded to bf16, as the contract rounds it) between launches
-    du = torch.empty_like(pix) if pix.dtype == torch.bfloat16 else None
+    # du (rounded to bf16, as the contract rounds it) between launches
+    du = torch.empty_like(pix)
     dw1_part = torch.empty(dw1_shape, dtype=torch.float32, device=pix.device)
     small_part = torch.empty(small_shape, dtype=torch.float32,
                              device=pix.device)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _fn("decoder_tail_bwd", f"decoder_tail_bwd_{_DTYPES[pix.dtype]}",
-             11, 4)(pix.data_ptr(), go.data_ptr(), w1.data_ptr(),
-                    b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-                    w2.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
-                    small_part.data_ptr(),
-                    None if du is None else du.data_ptr(), b, h, w,
-                    int(bool(approximate)), stream)
+    rc = _fn("decoder_tail_bwd", "decoder_tail_bwd_bf16", 11, 4)(
+        pix.data_ptr(), go.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        lns.data_ptr(), lnb.data_ptr(), w2.data_ptr(), dpix.data_ptr(),
+        dw1_part.data_ptr(), small_part.data_ptr(), du.data_ptr(), b, h, w,
+        int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_bwd")
     fused_decoder_tail_bwd.launches += 1
     dw1 = dw1_part.sum(0).reshape(3, 3, c, c).permute(3, 2, 0, 1)
@@ -413,47 +410,64 @@ def _generic_tiles_fn():
 
 
 @build.lookup
-def _generic_fn(direction: str, dtype: torch.dtype, wide: bool = False):
-    route = "_wide" if wide else ""
+def _generic_fn(direction: str, dtype: torch.dtype):
     fn = getattr(build.library("decoder_tail_generic"),
-                 f"decoder_tail_generic{route}_{direction}_{_DTYPES[dtype]}")
-    n_ptrs = (8 if direction == "fwd" else 12) + int(wide)
-    n_ints = 6 + int(wide and direction == "bwd")
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
+                 f"decoder_tail_generic_{direction}_{_DTYPES[dtype]}")
+    n_ptrs = 8 if direction == "fwd" else 12
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @build.lookup
-def _tc_partials_fn():
-    fn = build.library("decoder_tail_tc_bwd").decoder_tail_tc_partials
+def _tc_partials_fn(f32: bool):
+    lib = build.library("decoder_tail_tc_bwd")
+    fn = (lib.decoder_tail_tc_partials_f32 if f32
+          else lib.decoder_tail_tc_partials)
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     return fn
 
 
 @build.lookup
-def _tc_partial_rows(b: int, h: int, w: int, c: int, cd: int):
-    """(dW1 slices, small-partial rows) of the tensor-core K4g at (b, h,
-    w, c), as its source sizes them (forgotten, as the symbols are, when
-    ``build.swapped`` swaps the library)."""
+def _tc_partial_rows(b: int, h: int, w: int, c: int, cd: int, f32: bool):
+    """(dW1 partial rows, small-partial rows) of the tensor-core backward
+    at (b, h, w, c) in fp32 or bf16, as its source sizes them (forgotten,
+    as the symbols are, when ``build.swapped`` swaps the library)."""
     shape = (ctypes.c_int * 2)()
-    _tc_partials_fn()(b, h, w, c, cd, shape)
+    _tc_partials_fn(f32)(b, h, w, c, cd, shape)
     return shape[0], shape[1]
 
 
-def _packed_size(cd: int) -> int:
-    """bf16 values of the packed parameters (csrc/decoder_tail_tc.cuh)."""
-    return 18 * cd * cd + 6 * cd + 3
+def _packed_size(cd: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Values of the packed parameters (csrc/decoder_tail_tc.cuh): W1 in
+    two parts in fp32 (big and small tf32)."""
+    parts = 2 if dtype == torch.float32 else 1
+    return 18 * cd * cd * parts + 6 * cd + 3
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: to
+    nearest, ties away from zero, on the low 13 bits (zero after it)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """``x`` = big + small (to ~2^-22 relative), both tf32: the 3xTF32
+    kernels' split."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)
 
 
 def pack_reference(conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cd,
                    dtype=torch.bfloat16):
-    """Plain version of the packing launch: the parameters rounded to bf16
-    (``conv2_b`` may be None: zeros) in csrc/decoder_tail_tc.cuh's layout,
-    zero-padded to ``cd`` channels, as one flat bf16 tensor (``dtype``
-    another type for the tests' fp32 restatements of the route)."""
+    """Plain version of the packing launch: the parameters in ``dtype``
+    (bf16: rounded; fp32: W1 split by :func:`tf32_split` into its big,
+    then its small planes) in csrc/decoder_tail_tc.cuh's layout, zero-padded
+    to ``cd`` channels (``conv2_b`` may be None: zeros), as one flat
+    tensor."""
     c = conv1_w.shape[0]
     dev = conv1_w.device
     w1 = torch.zeros((9, cd, cd), dtype=torch.float32, device=dev)
@@ -465,16 +479,21 @@ def pack_reference(conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cd,
     w2[:c] = conv2_w.float().reshape(3, c).t()
     b2 = (torch.zeros(3, device=dev) if conv2_b is None
           else conv2_b.float().reshape(-1))
-    return torch.cat([w1.reshape(-1), w1.transpose(1, 2).reshape(-1),
-                      rows[:3].reshape(-1), w2.reshape(-1), b2]).to(dtype)
+    planes = [w1.reshape(-1), w1.transpose(1, 2).reshape(-1)]
+    if dtype == torch.float32:
+        planes = [p for w in planes for p in tf32_split(w)]
+    return torch.cat([*planes, rows[:3].reshape(-1), w2.reshape(-1),
+                      b2]).to(dtype)
 
 
 def _pack(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cd):
-    """One launch: the parameters (fp32, or cast to it) rounded to bf16 and
-    packed as csrc/decoder_tail_tc.cuh lays them out, zero-padded to ``cd``
-    channels (``conv2_b`` may be None: zeros). Offsets (bf16 values): W1
-    (tap, o, c) at 0, W1 (tap, c, o) at 9 cd^2, b1, LN scale, LN bias at
-    18 cd^2 + (0, 1, 2) cd, W2 (c, k) at 18 cd^2 + 3 cd, b2 after it."""
+    """One launch: the parameters (fp32, or cast to it) packed in
+    pix.dtype as csrc/decoder_tail_tc.cuh lays them out
+    (:func:`pack_reference`), zero-padded to ``cd`` channels (``conv2_b``
+    may be None: zeros). Offsets (values, p = 1 in bf16, 2 in fp32): W1
+    (p, tap, o, c) at 0, W1 (p, tap, c, o) at 9 p cd^2, b1, LN scale, LN
+    bias at 18 p cd^2 + (0, 1, 2) cd, W2 (c, k) at 18 p cd^2 + 3 cd, b2
+    after it."""
     c = pix.shape[-1]
     if tuple(conv1_w.shape) != (c, c, 3, 3) or \
             tuple(conv2_w.shape) != (3, c, 1, 1):
@@ -483,10 +502,12 @@ def _pack(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cd):
     params = [v.float().contiguous() for v in (
         conv1_w, conv1_b, ln_w, ln_b, conv2_w)]
     b2 = None if conv2_b is None else conv2_b.float().contiguous()
-    packed = torch.empty(_packed_size(cd), dtype=torch.bfloat16,
+    packed = torch.empty(_packed_size(cd, pix.dtype), dtype=pix.dtype,
                          device=pix.device)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _fn("decoder_tail_tc_fwd", "decoder_tail_tc_pack", 7, 2)(
+    symbol = ("decoder_tail_tc_pack" if pix.dtype == torch.bfloat16
+              else "decoder_tail_tc_pack_f32")
+    rc = _fn("decoder_tail_tc_fwd", symbol, 7, 2)(
         *(v.data_ptr() for v in params),
         None if b2 is None else b2.data_ptr(), packed.data_ptr(), c, cd,
         stream)
@@ -496,8 +517,11 @@ def _pack(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cd):
 
 def _tc_u_scratch(pix, c):
     """The tensor-core route's fp32 u scratch (pix's shape) past
-    ``TC_ROW_CHANNELS``, else None."""
-    if c <= TC_ROW_CHANNELS:
+    ``TC_ROW_CHANNELS`` (bf16) or ``TC_ROW_CHANNELS_F32`` (fp32), else
+    None."""
+    limit = (TC_ROW_CHANNELS if pix.dtype == torch.bfloat16
+             else TC_ROW_CHANNELS_F32)
+    if c <= limit:
         return None
     return torch.empty(pix.shape, dtype=torch.float32, device=pix.device)
 
@@ -521,10 +545,9 @@ def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
     Arguments as :func:`fused_decoder_tail`, which sends the widths the
     C = 64 kernel does not take here. A CPU tensor runs the plain
     version; a CUDA tensor goes by :func:`generic_tail_route`: to
-    :func:`fused_decoder_tail_tc` (which counts its own launches), or it
-    launches the scalar kernel (channels zero-padded to
-    :func:`generic_channels`; past 128 with an fp32 (B, H, W, CP) scratch
-    for u; bf16 at C <= 8 after the packing launch) or raises.
+    :func:`fused_decoder_tail_tc` (which counts its own launches), or at
+    C <= 8 it launches the scalar kernel (channels zero-padded to
+    :func:`generic_channels`; bf16 after the packing launch) or raises.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
@@ -536,10 +559,9 @@ def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
                                      conv2_w, conv2_b, approximate)
     b, h, w, c = pix.shape
     cp = generic_channels(c, pix.dtype)
-    wide = cp > GENERIC_CHANNELS[-1]
     if pix.dtype == torch.bfloat16:
-        # bf16 at C <= 8: the packed buffer at cd = 8 holds the scalar
-        # kernels' layouts
+        # bf16: the packed buffer at cd = 8 holds the scalar kernels'
+        # layouts
         w1, _, b1, lns, lnb, w2, b2 = _packed_views(_pack(
             pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cp), cp)
     else:
@@ -548,14 +570,11 @@ def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
         b2 = conv2_b.to(pix.dtype).reshape(-1).contiguous()
     pix = (pix if cp == c else _pad_channels(pix, cp, (3,))).contiguous()
     out = torch.empty((b, h, w, 3), dtype=pix.dtype, device=pix.device)
-    u = (torch.empty((b, h, w, cp), dtype=torch.float32, device=pix.device)
-         if wide else None)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _generic_fn("fwd", pix.dtype, wide)(
+    rc = _generic_fn("fwd", pix.dtype)(
         pix.data_ptr(), w1.data_ptr(), b1.data_ptr(), lns.data_ptr(),
-        lnb.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        *([u.data_ptr()] if wide else []), b, h, w, cp, c,
-        int(bool(approximate)), stream)
+        lnb.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h,
+        w, cp, c, int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_generic")
     fused_decoder_tail_generic.launches += 1
     return out
@@ -566,24 +585,15 @@ fused_decoder_tail_generic.launches = 0
 
 def _check_tc(pix):
     if generic_tail_route(pix.shape[-1], pix.dtype) != "tc":
-        raise ValueError(f"the tensor-core tail takes bf16 at C >= "
+        raise ValueError(f"the tensor-core tail takes C >= "
                          f"{TC_MIN_CHANNELS}, got {pix.dtype} "
                          f"C={pix.shape[-1]}")
 
 
-def fused_decoder_tail_tc(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
-                          conv2_b, approximate: bool):
-    """K3g on the tensor cores (bf16 at C >= ``TC_MIN_CHANNELS``): the
-    packing launch, then ``csrc/decoder_tail_tc_fwd.cu``'s kernel on the
-    unpadded pixels (padded to a multiple of 8 only where C is not); past
-    ``TC_ROW_CHANNELS`` its two launches pass u through an fp32 scratch. A
-    CPU tensor runs the plain version; other widths and types raise."""
-    if pix.device.type == "cpu":
-        return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
-                                            ln_b, conv2_w, conv2_b,
-                                            approximate)
-    _check_tc(pix)
-    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b)
+def _tc_forward(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b,
+                approximate):
+    """The tensor-core forward's launches on CUDA tensors (the packing,
+    then the kernel; past the row width the row kernel): no count."""
     b, h, w, c = pix.shape
     cd = generic_channels(c, pix.dtype)
     packed = _pack(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cd)
@@ -591,11 +601,32 @@ def fused_decoder_tail_tc(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
     out = torch.empty((b, h, w, 3), dtype=pix.dtype, device=pix.device)
     u = _tc_u_scratch(pix, c)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _fn("decoder_tail_tc_fwd", "decoder_tail_tc_fwd", 4, 6)(
+    symbol = ("decoder_tail_tc_fwd" if pix.dtype == torch.bfloat16
+              else "decoder_tail_tc_fwd_f32")
+    rc = _fn("decoder_tail_tc_fwd", symbol, 4, 6)(
         pix.data_ptr(), packed.data_ptr(),
         None if u is None else u.data_ptr(), out.data_ptr(), b, h, w, c, cd,
         int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_tc_fwd")
+    return out
+
+
+def fused_decoder_tail_tc(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                          conv2_b, approximate: bool):
+    """K3g on the tensor cores (C >= ``TC_MIN_CHANNELS``, bf16 or fp32):
+    the packing launch, then ``csrc/decoder_tail_tc_fwd.cu``'s kernel on
+    the unpadded pixels (padded to a multiple of 8 only where C is not);
+    past ``TC_ROW_CHANNELS`` (fp32: ``TC_ROW_CHANNELS_F32``) its two
+    launches pass u through an fp32 scratch. A CPU tensor runs the plain
+    version; other widths and types raise."""
+    if pix.device.type == "cpu":
+        return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
+                                            ln_b, conv2_w, conv2_b,
+                                            approximate)
+    _check_tc(pix)
+    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b)
+    out = _tc_forward(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b,
+                      approximate)
     fused_decoder_tail_tc.launches += 1
     return out
 
@@ -610,11 +641,9 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
 
     A CPU tensor runs the plain version; a CUDA tensor goes by
     :func:`generic_tail_route`: to :func:`fused_decoder_tail_bwd_tc`, or
-    it launches the scalar kernels (counted as one call) or raises: two
-    kernels (du, then dpix with dW1), past 128 channels three (du, dpix,
-    dW1 over pixel slices) with an fp32 scratch for u and dpix's sums; bf16
-    at C <= 8 after the packing launch. One ``torch.sum`` over each fp32
-    partial (per CTA, dW1 per pixel slice where sliced) finishes the
+    at C <= 8 it launches the scalar kernels (counted as one call) or
+    raises: two kernels (du, then dpix with dW1); bf16 after the packing
+    launch. One ``torch.sum`` over each fp32 per-CTA partial finishes the
     parameter gradients.
     """
     if pix.device.type == "cpu":
@@ -628,11 +657,10 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
     _check_grad_out(pix, grad_out)
     b, h, w, c = pix.shape
     cp = generic_channels(c, pix.dtype)
-    wide = cp > GENERIC_CHANNELS[-1]
     go = grad_out.to(pix.dtype).contiguous()
     if pix.dtype == torch.bfloat16:
-        # bf16 at C <= 8: the packed buffer at cd = 8 holds the scalar
-        # kernels' layouts
+        # bf16: the packed buffer at cd = 8 holds the scalar kernels'
+        # layouts
         w1, w1t, b1, lns, lnb, w2, _ = _packed_views(_pack(
             pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, None, cp), cp)
     else:
@@ -642,27 +670,18 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
     pix = (pix if cp == c else _pad_channels(pix, cp, (3,))).contiguous()
     du = torch.empty_like(pix)
     dpix = torch.empty_like(pix)
-    tiles = _generic_tiles_fn()(b, h, w)  # one small partial row per CTA
-    # dW1: one partial row per CTA, or per pixel slice past 128 channels
-    slices = wide_slices(b * h * w) if wide else tiles
-    dw1_part = torch.empty((slices, 9 * cp * cp), dtype=torch.float32,
+    tiles = _generic_tiles_fn()(b, h, w)  # one partial row per CTA
+    dw1_part = torch.empty((tiles, 9 * cp * cp), dtype=torch.float32,
                            device=pix.device)
     small_part = torch.empty((tiles, 6 * cp + 3), dtype=torch.float32,
                              device=pix.device)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    ptrs = [pix.data_ptr(), go.data_ptr(), w1.data_ptr(), w1t.data_ptr(),
-            b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w2.data_ptr()]
-    if wide:
-        u = torch.empty(pix.shape, dtype=torch.float32, device=pix.device)
-        rc = _generic_fn("bwd", pix.dtype, True)(
-            *ptrs, u.data_ptr(), du.data_ptr(), dpix.data_ptr(),
-            dw1_part.data_ptr(), small_part.data_ptr(), b, h, w, cp, c,
-            slices, int(bool(approximate)), stream)
-    else:
-        rc = _generic_fn("bwd", pix.dtype)(
-            *ptrs, du.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
-            small_part.data_ptr(), b, h, w, cp, c, int(bool(approximate)),
-            stream)
+    rc = _generic_fn("bwd", pix.dtype)(
+        pix.data_ptr(), go.data_ptr(), w1.data_ptr(), w1t.data_ptr(),
+        b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w2.data_ptr(),
+        du.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
+        small_part.data_ptr(), b, h, w, cp, c, int(bool(approximate)),
+        stream)
     _raise_if(rc, "decoder_tail_generic")
     fused_decoder_tail_bwd_generic.launches += 1
     dw1 = dw1_part.sum(0).reshape(3, 3, cp, cp)[:, :, :c, :c].permute(
@@ -687,27 +706,17 @@ def _check_grad_out(pix, grad_out):
                          f"expected {(b, h, w, 3)}")
 
 
-def fused_decoder_tail_bwd_tc(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
-                              grad_out, approximate: bool):
-    """K4g on the tensor cores (bf16 at C >= ``TC_MIN_CHANNELS``): the
-    packing launch and ``csrc/decoder_tail_tc_bwd.cu``'s three kernels (du
-    into a bf16 scratch, dpix, dW1 over pixel slices; one count; past
-    ``TC_ROW_CHANNELS`` du is two, through an fp32 scratch for u), then one
-    ``torch.sum`` over each fp32 partial. A CPU tensor runs the plain
-    version; other widths and types raise."""
-    if pix.device.type == "cpu":
-        return fused_decoder_tail_bwd_reference(
-            pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out,
-            approximate)
-    _check_tc(pix)
-    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out)
-    _check_grad_out(pix, grad_out)
+def _tc_backward(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out,
+                 approximate):
+    """The tensor-core backward's launches on CUDA tensors and the sums
+    that finish its partials: no count."""
     b, h, w, c = pix.shape
+    f32 = pix.dtype == torch.float32
     cd = generic_channels(c, pix.dtype)
     go = grad_out.to(pix.dtype).contiguous()
     packed = _pack(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, None, cd)
     pix = (pix if cd == c else _pad_channels(pix, cd, (3,))).contiguous()
-    slices, rows = _tc_partial_rows(b, h, w, c, cd)
+    slices, rows = _tc_partial_rows(b, h, w, c, cd, f32)
     du = torch.empty_like(pix)
     dpix = torch.empty_like(pix)
     dw1_part = torch.empty((slices, 9, c, c), dtype=torch.float32,
@@ -716,13 +725,24 @@ def fused_decoder_tail_bwd_tc(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
                              device=pix.device)
     u = _tc_u_scratch(pix, c)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
-    rc = _fn("decoder_tail_tc_bwd", "decoder_tail_tc_bwd", 8, 6)(
-        pix.data_ptr(), go.data_ptr(), packed.data_ptr(),
-        None if u is None else u.data_ptr(), du.data_ptr(), dpix.data_ptr(),
-        dw1_part.data_ptr(), small_part.data_ptr(), b, h, w, c, cd,
-        int(bool(approximate)), stream)
+    if f32:
+        # du^T split into big and small tf32 parts, each image row's
+        # channel padded to whole 64-pixel units: dW1's K-major B
+        dut = torch.empty((2, b, h, cd, -(-w // TC_TILE) * TC_TILE),
+                          dtype=torch.float32, device=pix.device)
+        rc = _fn("decoder_tail_tc_bwd", "decoder_tail_tc_bwd_f32", 9, 6)(
+            pix.data_ptr(), go.data_ptr(), packed.data_ptr(),
+            None if u is None else u.data_ptr(), du.data_ptr(),
+            dut.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
+            small_part.data_ptr(), b, h, w, c, cd, int(bool(approximate)),
+            stream)
+    else:
+        rc = _fn("decoder_tail_tc_bwd", "decoder_tail_tc_bwd", 8, 6)(
+            pix.data_ptr(), go.data_ptr(), packed.data_ptr(),
+            None if u is None else u.data_ptr(), du.data_ptr(),
+            dpix.data_ptr(), dw1_part.data_ptr(), small_part.data_ptr(), b,
+            h, w, c, cd, int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_tc_bwd")
-    fused_decoder_tail_bwd_tc.launches += 1
     dw1 = dw1_part.sum(0).reshape(3, 3, c, c).permute(3, 2, 0, 1)
     small = small_part.sum(0)
     return ((dpix if cd == c else dpix[..., :c].contiguous()),
@@ -731,6 +751,28 @@ def fused_decoder_tail_bwd_tc(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
             small[3 * c:6 * c].reshape(c, 3).t().reshape(
                 conv2_w.shape).to(conv2_w.dtype),
             small[6 * c:].to(conv2_w.dtype))
+
+
+def fused_decoder_tail_bwd_tc(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                              grad_out, approximate: bool):
+    """K4g on the tensor cores (C >= ``TC_MIN_CHANNELS``, bf16 or fp32):
+    the packing launch and ``csrc/decoder_tail_tc_bwd.cu``'s three kernels
+    (du into a scratch of pix's type, dpix, dW1 over pixel slices; one
+    count; fp32 also writes du^T split for dW1's B; past the row width du
+    is two, through an fp32 scratch for u), then one ``torch.sum`` over
+    each fp32 partial. A CPU tensor runs the plain version; other widths
+    and types raise."""
+    if pix.device.type == "cpu":
+        return fused_decoder_tail_bwd_reference(
+            pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out,
+            approximate)
+    _check_tc(pix)
+    _check_pix(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, grad_out)
+    _check_grad_out(pix, grad_out)
+    grads = _tc_backward(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                         grad_out, approximate)
+    fused_decoder_tail_bwd_tc.launches += 1
+    return grads
 
 
 fused_decoder_tail_bwd_tc.launches = 0

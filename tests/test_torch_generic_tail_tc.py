@@ -1,5 +1,6 @@
 """PyTorch port: the tensor-core route of the width-generic decoder tail
-(K3g / K4g in bf16 at 9 <= C <= 512 but 64), on the CPU.
+(K3g / K4g in bf16 at C >= 9 but 64), on the CPU. Its fp32 (3xTF32)
+instantiation has its own tests (tests/test_torch_fp32_tail_tc.py).
 
 ``_tc_tail`` restates the kernels' arithmetic in plain torch: the
 parameters packed and rounded to bf16 as the packing launch does; the
@@ -76,10 +77,11 @@ def _tc_tail(pix, w1, b1, lns, lnb, w2, b2, go, approx, split, slices):
     split = split and not tiles
     kc = -(-cd // KCH)
     packed = dh.pack_reference(w1, b1, lns, lnb, w2, b2, cd, dt).float()
-    p2 = 9 * cd * cd
-    w1p = F.pad(packed[:p2].reshape(9, cd, cd),
+    parts = 2 if dt == torch.float32 else 1  # fp32: big + small tf32 parts
+    p2 = 9 * cd * cd * parts
+    w1p = F.pad(packed[:p2].reshape(parts, 9, cd, cd).sum(0),
                 (0, kc * KCH - cd, 0, nt - cd))          # (tap, o, c)
-    w1t = F.pad(packed[p2:2 * p2].reshape(9, cd, cd),
+    w1t = F.pad(packed[p2:2 * p2].reshape(parts, 9, cd, cd).sum(0),
                 (0, kc * KCH - cd, 0, nt - cd))          # (tap, c, o)
     rows = packed[2 * p2:]
     vec = [F.pad(rows[i * cd:(i + 1) * cd], (0, nt - cd)) for i in range(3)]
@@ -151,19 +153,18 @@ def _tc_tail(pix, w1, b1, lns, lnb, w2, b2, go, approx, split, slices):
 
 @pytest.mark.parametrize("c,bf16_route,bf16_cp,f32_cp", [
     (1, "scalar", 8, 8), (8, "scalar", 8, 8), (9, "tc", 16, 16),
-    (13, "tc", 16, 16), (16, "tc", 16, 16), (40, "tc", 40, 64), (100, "tc", 104, 128),
+    (13, "tc", 16, 16), (16, "tc", 16, 16), (40, "tc", 40, 40), (100, "tc", 104, 104),
     (128, "tc", 128, 128), (160, "tc", 160, 160), (256, "tc", 256, 256),
     (264, "tc", 264, 264), (512, "tc", 512, 512), (513, "tc", 520, 520),
     (1000, "tc", 1000, 1000)])
 def test_tc_route_table(c, bf16_route, bf16_cp, f32_cp):
-    """bf16 at C >= 9 goes to the tensor-core kernels, padded to a
-    multiple of 8; fp32 at every width, and bf16 at C <= 8, stay on the
-    scalar kernels and their padding. Every width is decoder_route's
-    "generic"."""
+    """C >= 9 goes to the tensor-core kernels in bf16 and fp32 (3xTF32),
+    padded to a multiple of 8; C <= 8 stays on the scalar kernels and their
+    padding in both types. Every width is decoder_route's "generic"."""
     for dtype in (torch.bfloat16, torch.float32):
         assert dh.decoder_route(c, dtype) == "generic"
     assert dh.generic_tail_route(c, torch.bfloat16) == bf16_route
-    assert dh.generic_tail_route(c, torch.float32) == "scalar"
+    assert dh.generic_tail_route(c, torch.float32) == bf16_route
     assert dh.generic_channels(c, torch.bfloat16) == bf16_cp
     assert dh.generic_channels(c, torch.float32) == f32_cp
     assert dh.generic_channels(c) == f32_cp
@@ -235,11 +236,9 @@ def test_tc_tail_arithmetic_matches_jax(c, split, approx):
     interpret mode, lanes padded to C), forward and all seven gradients
     through its custom VJP; C 13 padded to 16 channels; whole-rows and
     split modes (C 264: split only, past 256; C 520: N tiles, past 512),
-    dW1 over 3 slices. Tolerances of
-    ``test_wide_tail_arithmetic_matches_jax``
-    (tests/test_torch_generic_widths.py): bf16 forward one bf16 step at
-    the largest magnitude (2^-7 x max |out|), gradients 1e-2 x their max
-    abs (both round at the same points; an fp32 sum in another order can
+    dW1 over 3 slices. Tolerances of tests/test_torch_decoder_head.py's
+    bf16 cases: bf16 forward one bf16 step at the largest magnitude (2^-7
+    x max |out|), gradients 1e-2 x their max abs (both round at the same points; an fp32 sum in another order can
     cross a bf16 rounding boundary, and du's flips add up in dpix and
     dW1)."""
     b, h, w = 1, 8, 6
@@ -306,7 +305,7 @@ def test_tc_wrappers_on_the_cpu_run_plain_and_count_no_launch(c):
 
 def test_tc_wrappers_refuse_other_devices_and_routes():
     """A meta tensor has no kernel; the tensor-core wrappers refuse a width
-    or type off their route."""
+    off their route (C <= 8, in either type)."""
     args = [a.to("meta") for a in _port_args(_inputs(3, 1, 4, 4, 40),
                                              torch.bfloat16)]
     with pytest.raises(RuntimeError, match="no kernel"):
@@ -314,7 +313,7 @@ def test_tc_wrappers_refuse_other_devices_and_routes():
     with pytest.raises(RuntimeError, match="no kernel"):
         dh.fused_decoder_tail_bwd_tc(*args[:6], args[0][..., :3], True)
     with pytest.raises(ValueError, match="tensor-core tail"):
-        dh.fused_decoder_tail_tc(args[0].float(), *args[1:], True)
+        dh.fused_decoder_tail_tc(args[0][..., :5].float(), *args[1:], True)
 
 
 def test_tc_sources_note_their_tpu_kernels():

@@ -8,10 +8,10 @@ decomposition (K padded with zero codes to its 32-byte depth step, the
 fp32 hidden scratch, the separate requantization) bit for bit against the
 plain version; ``int8_matmul``'s float64 route; ``tiny_test`` served
 int8-fused against the JAX package's quantized model with its ``mlp`` on
-the Pallas kernel; ``decoder_route`` past 128 channels and the chunked
-route's arithmetic against the JAX ``fused_decoder_tail`` (interpret
-mode). Inputs are numpy from a seed. Tolerances with their reasons at
-each test.
+the Pallas kernel; ``decoder_route`` past 128 channels (the tensor-core
+route's arithmetic there is in tests/test_torch_generic_tail_tc.py and
+tests/test_torch_fp32_tail_tc.py). Inputs are numpy from a seed.
+Tolerances with their reasons at each test.
 """
 import jax
 import jax.numpy as jnp
@@ -21,7 +21,6 @@ import torch
 import torch.nn.functional as F
 
 from painter_tpu import configs as jcfg
-from painter_tpu.kernels.decoder_head import fused_decoder_tail as j_tail
 from painter_tpu.kernels.int8_mlp import int8_mlp as j_int8_mlp
 from painter_tpu.models import incontext_vit as jm
 from painter_tpu.ops import quant as jq
@@ -32,8 +31,7 @@ from painter_tpu_torch.kernels import int8_mlp as k5
 from painter_tpu_torch.models import incontext_vit as tm
 from painter_tpu_torch.ops import quant as tq
 
-from test_torch_decoder_head import (GRAD_RTOL, NAMES, _close_rel, _inputs,
-                                     _jax_args, _jax_grads, _port_args)
+from test_torch_decoder_head import _inputs, _port_args
 from torch_port_common import jax_params_np, port_model, stitched_batch, t
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -316,129 +314,6 @@ def test_decoder_route_past_128_channels(c, cp):
     assert dh.generic_channels(c) == cp
 
 
-@pytest.mark.parametrize("n_pixels,slices", [(1, 1), (4096, 1), (4097, 2),
-                                             (2 * 64 * 32, 1),
-                                             (896 * 448, 64)])
-def test_wide_dw1_slices(n_pixels, slices):
-    assert dh.wide_slices(n_pixels) == slices
-
-
-def _wide_tail(pix, w1, b1, lns, lnb, w2, b2, go, approx):
-    """K3g / K4g's chunked route (C > 128) in torch, rounding where the
-    kernels round (pixels, weights and row vectors in pix's type; the GELU
-    output and du cast to it; fp32 everywhere else): the width padded to
-    a multiple of 8, the conv3x3 summed over 32-channel input chunks in
-    order, + b1 after the last; LayerNorm over the real C; dpix the
-    transposed conv of the cast du summed over 32-channel chunks; the small
-    gradients as per-tile partials (8 x 16 tiles); dW1 as partial sums
-    over ``wide_slices`` slices of the pixels, each in pixel order.
-    Returns (out, dpix, dW1, db1, dLN scale, dLN bias, dW2, db2) in the
-    plain versions' types and layouts."""
-    dt = pix.dtype
-    b, h, w, c = pix.shape
-    cp = dh.generic_channels(c)
-    assert cp > dh.GENERIC_CHANNELS[-1]
-    pw1, pb1, plns, plnb, pw2 = (v.float() for v in dh._packed_params(
-        pix, w1, b1, lns, lnb, w2, cp))
-    xp = dh._pad_channels(pix, cp, (3,)).float()
-    conv_w = pw1.permute(3, 2, 0, 1)  # (o, c, 3, 3)
-    chunks = [slice(c0, c0 + 32) for c0 in range(0, cp, 32)]
-    u = sum(F.conv2d(xp[..., ch].permute(0, 3, 1, 2), conv_w[:, ch],
-                     padding=1) for ch in chunks).permute(0, 2, 3, 1) + pb1
-    real = torch.arange(cp) < c
-    ur = u[..., :c]
-    mean = ur.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((ur - mean) ** 2).mean(-1, keepdim=True) + dh.LN_EPS)
-    xhat = (u - mean) * rstd
-    n = xhat * plns + plnb
-    g = dh._gelu(n, approx).to(dt).float() * real
-    out = (g @ pw2 + b2.to(dt).float()).to(dt)
-    gof = go.to(dt).float()
-    dn = (gof @ pw2.t()) * dh.gelu_grad(n, approx) * real
-    dxhat = dn * plns
-    mx = dxhat.sum(-1, keepdim=True) / c
-    mxx = (dxhat * xhat).sum(-1, keepdim=True) / c
-    du = rstd * (dxhat - mx - xhat * mxx) * real
-    du_r = du.to(dt).float()
-    dpix = sum(torch.nn.grad.conv2d_input(
-        xp.permute(0, 3, 1, 2).shape, conv_w[ch],
-        du_r[..., ch].permute(0, 3, 1, 2), padding=1) for ch in chunks)
-    th, tw = 8, 16
-    hp, wp = -(-h // th) * th, -(-w // tw) * tw
-
-    def tiles(v):  # (b, h, w, k) -> (tiles, th * tw, k) zero-padded
-        v = F.pad(v, (0, 0, 0, wp - w, 0, hp - h))
-        v = v.reshape(b, hp // th, th, wp // tw, tw, -1)
-        return v.permute(0, 1, 3, 2, 4, 5).reshape(-1, th * tw, v.shape[-1])
-
-    parts = [tiles(v).sum(1) for v in (du, dn * xhat, dn)]
-    dw2 = torch.einsum("tpc,tpk->tck", tiles(g), tiles(gof)).reshape(
-        -1, 3 * cp)
-    small = torch.cat([*parts, dw2, tiles(gof).sum(1)], 1).sum(0)
-    n_pix = b * h * w
-    per = -(-n_pix // dh.wide_slices(n_pix))
-    xpad = F.pad(xp, (0, 0, 1, 1, 1, 1))
-    d_flat = du_r.reshape(-1, cp)
-    dw1 = torch.stack([sum(
-        xs[p0:p0 + per].t() @ d_flat[p0:p0 + per]
-        for p0 in range(0, n_pix, per))
-        for xs in (xpad[:, dy:dy + h, dx:dx + w].reshape(-1, cp)
-                   for dy in range(3) for dx in range(3))])  # (tap, c, o)
-    return (out, dpix.permute(0, 2, 3, 1)[..., :c].to(dt),
-            dw1.reshape(3, 3, cp, cp)[:, :, :c, :c].permute(3, 2, 0, 1),
-            small[:c], small[cp:cp + c], small[2 * cp:2 * cp + c],
-            small[3 * cp:6 * cp].reshape(cp, 3)[:c].t().reshape(3, c, 1, 1),
-            small[6 * cp:])
-
-
-@pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("approx", [False, True])
-def test_wide_tail_arithmetic_matches_jax(dt, approx):
-    """The chunked route's arithmetic at C = 160 (a few pixels: 1 x 8 x 6)
-    == the JAX ``fused_decoder_tail`` (Pallas in interpret mode, lanes
-    padded to C), forward and all seven gradients through its custom VJP.
-    Tolerances of tests/test_torch_decoder_head.py: fp32 forward 1e-4
-    absolute, gradients 5e-4 x their max abs; bf16 forward one bf16 step
-    at the largest magnitude (2^-7 x max |out|), gradients 1e-2 x their
-    max abs (both round at the same points; an fp32 sum in another order
-    can cross a bf16 rounding boundary, and du's flips add up in dpix and
-    dW1)."""
-    dtype = DTYPES[dt]
-    b, h, w, c = 1, 8, 6, 160
-    args = _inputs(16, b, h, w, c)
-    go = np.random.RandomState(17).randn(b, h, w, 3).astype(np.float32)
-    ref_out = np.asarray(j_tail(*_jax_args(args, JDTYPES[dt]), approx),
-                         np.float32)
-    ref_grads = _jax_grads(args, JDTYPES[dt], approx, go)
-    pix, w1, b1, lns, lnb, w2, b2 = _port_args(args, dtype)
-    got = _wide_tail(pix, w1, b1, lns, lnb, w2, b2, t(go), approx)
-    assert got[0].dtype == dtype and got[1].dtype == dtype
-    if dtype == torch.float32:
-        np.testing.assert_allclose(got[0].numpy(), ref_out, atol=1e-4)
-    else:
-        err = np.abs(got[0].float().numpy() - ref_out).max()
-        assert err <= 2.0 ** -7 * np.abs(ref_out).max(), err
-    for name, a, r in zip(NAMES, got[1:], ref_grads):
-        assert tuple(a.shape) == r.shape, name
-        _close_rel(a.float().numpy(), r, GRAD_RTOL[dtype], name)
-
-
-@pytest.mark.parametrize("shape,c", [((2, 16, 12), 160), ((1, 9, 17), 200)])
-def test_wide_tail_arithmetic_matches_plain(shape, c):
-    """The chunked route's arithmetic == the plain forward and backward in
-    fp32 within 1e-5 x each output's max abs (sums in another order)."""
-    b, h, w = shape
-    args = _port_args(_inputs(c + h, b, h, w, c), torch.float32)
-    go = t(np.random.RandomState(c).randn(b, h, w, 3))
-    got = _wide_tail(*args, go, True)
-    ref = (dh.fused_decoder_tail_reference(*args, True),
-           *dh.fused_decoder_tail_bwd_reference(*args[:6], go, True))
-    for name, a, r in zip(("out",) + NAMES, got, ref):
-        assert a.shape == r.shape, name
-        err = (a - r).abs().max().item()
-        assert err <= 1e-5 * r.abs().max().item(), (name, err)
-
-
 # ---------------------------------------------------------------------------
 # the new wrappers on the CPU and on other devices
 # ---------------------------------------------------------------------------
@@ -494,5 +369,8 @@ def test_k5g_source_notes_its_tpu_kernel():
     assert 'extern "C"' in src and "int8_mlp_generic_f32" in src
     with open(f"{build.CSRC}/decoder_tail_generic.cu") as f:
         src = f.read()
-    assert "decoder_tail_generic_wide_bwd_f32" in src
+    # the scalar tail keeps C <= 8; the chunked route past 128 channels
+    # went when fp32 moved to the tensor cores
+    assert "decoder_tail_generic_bwd_f32" in src
+    assert "decoder_tail_generic_wide" not in src
     assert build._target("int8_mlp_generic").startswith(build.BUILD_DIR)
