@@ -195,6 +195,7 @@ def k1_case(bh, grid, dtype, seed, iters, d=64, fn=None):
                                                        grid, scale)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    rel_err = err / ref.float().abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     check(torch.isfinite(out).all().item(), f"K1 non-finite at {bh}x{grid}")
     check(err <= K1_TOL[dtype] and lse_err <= 1e-3,
@@ -217,7 +218,8 @@ def k1_case(bh, grid, dtype, seed, iters, d=64, fn=None):
     nbytes = (4 * bh * length * d + bh * length * sum(grid)) * es \
         + bh * length * 4
     return {"bh": bh, "grid": list(grid), "dtype": str(dtype), "hd": d,
-            "max_abs_err": err, "lse_err": lse_err, "ms": ms,
+            "max_abs_err": err, "rel_err": rel_err, "lse_err": lse_err,
+            "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "sdpa_nobias_ms": nobias_ms, "flop": flops, "bytes": nbytes,
             **attention_bound(flops, nbytes, dtype)}
@@ -3558,12 +3560,24 @@ def phase_data_front_end(label):
 GENERIC_ATTN_SHAPES = ((4, 16, (8, 4)), (4, 16, (12, 6)), (4, 120, (16, 8)),
                        (4, 8, (6, 4)), (64, 16, (2, 2)), (4, 32, (40, 3)),
                        (2, 32, (2, 200)))
-# the ViT-L update at --input_size 1280 640 (b1 x 16 heads on the 80x40
-# grid), where K1 and K2 take the forward and the backward: K1g and K2g
-# called directly there, for their times beside K1's and K2's
+# K1g / K2g at full size, (BH, hd, grid, with the backward): the ViT-L
+# update at --input_size 1280 640 (b1 x 16 heads on 80x40, where K1 and K2
+# take both: K1g and K2g called directly, timed beside K2), at 1440 720
+# (90x45: K1 forward, K2g backward), a b1 forward at 2048x1024 (128x64,
+# kh + kw 192 past K1's 190: K1g; the domain's edge, 64 + 64 = 128) and a
+# ViT-H-width head (1280 / 16 = 80, padded to 128) on the 56x28 grid at
+# b8 (80 + 28 = 108)
 GENERIC_MAIN_SHAPE = (16, 64, (80, 40))
-# tiny_test's training shape, K1g's and K2g's main path
-GENERIC_TINY_SHAPE = (4, 16, (8, 4))
+GENERIC_FULL_SHAPES = ((16, 64, (80, 40), True), (16, 64, (90, 45), True),
+                       (16, 64, (128, 64), False),
+                       (128, 80, (56, 28), True))
+# the full-size main paths' shapes: K2g's (the 1440x720 update) and K1g's
+# (the 2048x1024 forward)
+GENERIC_BWD_MAIN = (16, 64, (90, 45))
+GENERIC_FWD_MAIN = (16, 64, (128, 64))
+# K1g's and K2g's kernels in a profile (csrc/flash_relpos_generic.cu)
+GENERIC_ATTN_KERNELS = {"fwd": ("gtc::fwd_kernel",),
+                        "bwd": ("gtc::dq_kernel", "gtc::dkv_kernel")}
 # K3g / K4g at the JAX tests' C = 8 on 16x12 and 12x8, tiny_test's b2
 # (2, 64, 32, 8) (the main-path shape of the scalar route), 40 on a
 # ragged 37x29 and 128, and past 128 channels: 160 and 256 at tiny_test's
@@ -3595,6 +3609,10 @@ TINY = "tiny_test"
 # tiny_test with 2x2 windows in half its blocks: key grids of width 2
 TINY_WINDOWED = dict(window_block_indexes=(0, 3, 4))
 PAINTER_1280 = (1280, 640)
+# Painter ViT-L on a 90x45 grid (the backward on K2g) and a 128x64 one
+# (the forward on K1g)
+PAINTER_1440 = (1440, 720)
+PAINTER_2048 = (2048, 1024)
 
 
 def _generic_counts():
@@ -3653,10 +3671,102 @@ def _attn_line(what, row, label):
           f"({_bound_note(row, dtype)}) [{label}]")
 
 
+def _generic_profile(fn, what):
+    """K1g's (``what`` "fwd") or K2g's ("bwd") kernels in one profiled call
+    of ``fn``: every attention forward (backward) kernel that ran is one of
+    theirs -- no K1 (K2) kernel -- and each of them ran. Returns their
+    device ms."""
+    from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
+    names = GENERIC_ATTN_KERNELS[what]
+    by_kernel = device_ms_by_kernel(fn, 1, [n.split("::")[1]
+                                            for n in names])
+    check(by_kernel and all(any(n in k for n in names) for k in by_kernel)
+          and all(any(n in k for k in by_kernel) for n in names),
+          f"the timed {what} launches ran {sorted(by_kernel)}, not {names}")
+    return sum(by_kernel.values())
+
+
+def generic_full_case(bh, d, grid, backward, dtype, seed, label):
+    """K1g (and K2g) at a full-size shape, called directly: against the
+    plain versions (max abs error over max |plain| within K1_TOL /
+    K2_TOL), K2g twice bitwise, each profiled to be the tensor-core kernels
+    and timed in turns (A B .. B A) with SDPA on the same inputs (the bias
+    a materialized attn_mask; in the backward a grad-requiring one), K2g
+    at 80x40 also with K2. Returns the rows."""
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    big = dtype == torch.float32 or grid[0] * grid[1] > 4000
+    iters = 2 if big else 5
+    fwd = k1_case(bh, grid, dtype, seed, iters, d=d,
+                  fn=fr.flash_attention_relpos_generic)
+    check(fwd["rel_err"] <= K1_TOL[dtype],
+          f"K1g {dtype} {bh}x{grid} hd {d}: err / max|plain| "
+          f"{fwd['rel_err']} (tol {K1_TOL[dtype]})")
+    rows = [("K1g", fwd)]
+    if backward:
+        rows.append(("K2g", k2_case(bh, grid, dtype, seed + 1, iters, d=d,
+                                    fn=fr.flash_attention_relpos_bwd_generic)))
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    length = grid[0] * grid[1]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v, dout = (rnd(bh, length, d) for _ in range(4))
+    rel_h, rel_w = rnd(bh, length, grid[0]), rnd(bh, length, grid[1])
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(
+        bh, length, length)
+    fargs = (q, k, v, rel_h, rel_w, grid, scale)
+    fwd["device_ms"] = _generic_profile(
+        lambda: fr.flash_attention_relpos_generic(*fargs), "fwd")
+    fwd["turns_ms"] = turns(
+        {"K1g": lambda: fr.flash_attention_relpos_generic(*fargs),
+         "SDPA": lambda: sdpa(q, k, v, attn_mask=bias, scale=scale)},
+        {"K1g": iters, "SDPA": iters})
+    print(f"# K1g {dtype} BH={bh} hd={d} grid={grid[0]}x{grid[1]} called "
+          f"directly, in turns K1g SDPA SDPA K1g: K1g "
+          f"{', '.join(f'{x:.4f}' for x in fwd['turns_ms']['K1g'])} ms "
+          f"(device {fwd['device_ms']:.4f}), SDPA+bias "
+          f"{', '.join(f'{x:.4f}' for x in fwd['turns_ms']['SDPA'])} ms; "
+          f"err / max|plain| {fwd['rel_err']:.2e}; bound "
+          f"{fwd['bound_ms']:.4f} ms ({_bound_note(fwd, dtype)}) [{label}]")
+    if backward:
+        bwd = rows[1][1]
+        out, lse = fr.flash_attention_relpos_reference(*fargs)
+        bargs = (q, k, v, rel_h, rel_w, out, lse, dout, grid, scale)
+        bwd["device_ms"] = _generic_profile(
+            lambda: fr.flash_attention_relpos_bwd_generic(*bargs), "bwd")
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        mask = bias.detach().requires_grad_()
+        sdpa_out = sdpa(*leaves, attn_mask=mask, scale=scale)
+        fns = {"K2g": lambda: fr.flash_attention_relpos_bwd_generic(*bargs),
+               "SDPA": lambda: torch.autograd.grad(
+                   sdpa_out, leaves + [mask], dout, retain_graph=True)}
+        if grid == GENERIC_MAIN_SHAPE[2]:
+            check(fr.attention_route(d, grid, length, dtype, True) == "vitl",
+                  f"{grid} is not K2's")
+            fns["K2"] = lambda: fr.flash_attention_relpos_bwd(*bargs)
+        bwd["turns_ms"] = turns(fns, {n: iters for n in fns})
+        del sdpa_out, leaves, mask
+        print(f"# K2g {dtype} BH={bh} hd={d} grid={grid[0]}x{grid[1]}"
+              f"{' called directly' if 'K2' in fns else ''}, in turns "
+              f"{' '.join(fns)} {' '.join(list(fns)[::-1])}: "
+              + "; ".join(f"{n} {', '.join(f'{x:.4f}' for x in ts)} ms"
+                          for n, ts in bwd["turns_ms"].items())
+              + f" (K2g device {bwd['device_ms']:.4f}); err / max|plain| "
+              f"{max(bwd['rel_errs'].values()):.2e}, two runs bitwise "
+              f"equal; bound {bwd['bound_ms']:.4f} ms "
+              f"({_bound_note(bwd, dtype)}) [{label}]")
+    del bias
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_generic_attention(label):
     """K1g / K2g against their plain versions at every shape of
     GENERIC_ATTN_SHAPES (each routed to them by ``attention_route``) and,
-    called directly, at GENERIC_MAIN_SHAPE, in bf16 and fp32; K2g twice,
+    called directly, at GENERIC_FULL_SHAPES, in bf16 and fp32; K2g twice,
     bitwise."""
     from painter_tpu_torch.kernels import flash_relpos as fr
     rows = []
@@ -3674,26 +3784,25 @@ def phase_generic_attention(label):
             check(after[0] == before[0] and after[1][0] > before[1][0]
                   and after[1][1] > before[1][1],
                   f"hd {d} grid {grid}: launches {before} -> {after}")
+            check(fwd["rel_err"] <= K1_TOL[dtype],
+                  f"K1g {dtype} hd {d} grid {grid}: err / max|plain| "
+                  f"{fwd['rel_err']}")
             _attn_line("K1g", fwd, label)
             _attn_line("K2g", bwd, label)
             rows += [("K1g", fwd), ("K2g", bwd)]
-    bh, d, grid = GENERIC_MAIN_SHAPE
-    for dtype in FP32:
-        before = _read_counts()
-        fwd = k1_case(bh, grid, dtype, seed=500, iters=3, d=d,
-                      fn=fr.flash_attention_relpos_generic)
-        bwd = k2_case(bh, grid, dtype, seed=501, iters=3, d=d,
-                      fn=fr.flash_attention_relpos_bwd_generic)
-        after = _read_counts()
-        check(after[0] == before[0] and after[1][0] > before[1][0]
-              and after[1][1] > before[1][1],
-              f"K1g / K2g called directly at {grid}: launches {before} -> "
-              f"{after}")
-        _attn_line("K1g (called directly; K1 takes this forward)", fwd,
-                   label)
-        _attn_line("K2g (called directly; K2 takes this backward)", bwd,
-                   label)
-        rows += [("K1g", fwd), ("K2g", bwd)]
+    for i, (bh, d, grid, backward) in enumerate(GENERIC_FULL_SHAPES):
+        for dtype in FP32:
+            before = _read_counts()
+            full = generic_full_case(bh, d, grid, backward, dtype,
+                                     500 + 10 * i, label)
+            after = _read_counts()
+            check(after[1][0] > before[1][0]
+                  and (after[1][1] > before[1][1]) == backward,
+                  f"K1g / K2g at {grid}: launches {before} -> {after}")
+            for kind, row in full:
+                _attn_line(f"{kind} (full size, called directly)", row,
+                           label)
+            rows += full
     return rows
 
 
@@ -4471,6 +4580,145 @@ def train_1280_fp32_times(label):
             vitl[3])
 
 
+def phase_train_1440(label):
+    """Painter ViT-L trains through ``train.main --input_size 1440 720``
+    (bf16, fused tail, save_kernel, b1 x accum 2, 2 updates, validation):
+    K1 on the 90x45 grid (kh + kw 135 <= 190), its whole backward on K2g's
+    tensor-core kernels (135 > K2's 127), no K2; each loss finite, each
+    update changes the parameters. Returns (K1, K2g, K3, K4) launches."""
+    updates, accum = 2, 2
+    t0 = time.perf_counter()
+    counts, _, _, depth = _train_main(
+        label, "train.main Painter ViT-L --input_size 1440 720", PAINTER,
+        PAINTER_1440, "bfloat16", 1, accum, updates, updates)
+    micro = updates * accum
+    check(counts[0] == (depth * (micro + updates), 0, micro, micro, 0)
+          and counts[1] == (0, depth * micro, 0, 0, 0),
+          f"ViT-L 1440x720 training launched {counts}")
+    print(f"# ViT-L 1440x720 training drive: {time.perf_counter() - t0:.1f}"
+          f" s with model build, data workers and validation")
+    return counts[0][0], counts[1][1], counts[0][2], counts[0][3]
+
+
+def _update_times(cfg, seed, n, label, what):
+    """ms per update of Painter ViT-L at ``cfg`` (b1 x accum 2,
+    save_kernel, fused tail) on a device-resident batch: launches of the
+    warm-up update (24 K1 and 24 K2g per micro-batch, no K2, no K1g), ``n``
+    timed updates, and K2g's device ms in one profiled update. Returns
+    (median ms, K2g ms, K2g launches per update)."""
+    from painter_tpu_torch.train import optim
+    from painter_tpu_torch.train import step as step_lib
+    model = _seeded_model(cfg, seed).train()
+    opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
+        warmup_epochs=0.0, steps_per_epoch=10))
+    step = step_lib.make_train_step(cfg, opt, accum_iter=2,
+                                    decoder_impl="fused")
+    batch = _train_batch(cfg, 1, seed=seed + 1, accum=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    _zero_counts()
+    _timed_updates(step, model, batch, gen, 1)
+    vitl, gen_counts = _read_counts()
+    check(vitl == (2 * cfg.depth, 0, 2, 2, 0)
+          and gen_counts == (0, 2 * cfg.depth, 0, 0, 0),
+          f"the {what} update launched {vitl} {gen_counts}")
+    times = _timed_updates(step, model, batch, gen, n)
+    k2g = _generic_profile(lambda: step(model, batch, gen), "bwd")
+    ms = 1e3 * statistics.median(times)
+    print(f"# ViT-L {what} update (b1 x accum 2, save_kernel, fused tail): "
+          f"{ms:.2f} ms median of {[round(1e3 * x, 2) for x in times]}; "
+          f"K2g device time in one update {k2g:.2f} ms ({2 * cfg.depth} "
+          f"calls on the tensor cores; {100 * k2g / ms:.1f}% of the "
+          f"update); launches per update K1 {vitl[0]}, K2g "
+          f"{gen_counts[1]} [{label}]")
+    del model, opt
+    torch.cuda.empty_cache()
+    return ms, k2g, gen_counts[1]
+
+
+def train_1440_times(label):
+    """The 1440x720 update's time in bf16 (3 updates) and in fp32 (one;
+    K2g on 3xTF32, TF32 off elsewhere), each with K2g's device share.
+    Returns (bf16 ms, bf16 K2g ms, fp32 ms, fp32 K2g ms, fp32 K2g
+    launches)."""
+    from painter_tpu_torch import configs
+    bf16 = _update_times(configs.get_config(
+        PAINTER, dtype="bfloat16", img_size=PAINTER_1440), 51, 3, label,
+        "1440x720 bf16")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fp32 = _update_times(configs.get_config(
+        PAINTER, dtype="float32", img_size=PAINTER_1440), 61, 1, label,
+        "1440x720 fp32")
+    return bf16[0], bf16[1], fp32[0], fp32[1], fp32[2]
+
+
+def phase_grad_check_1440(label):
+    """Painter ViT-L at 1440x720, fp32 b1, TF32 off: the loss and every
+    parameter's gradient with K1 (forward) and K2g (backward, 3xTF32) on
+    the 90x45 grid against plain attention, at ``phase_grad_check``'s
+    limits. Returns K2g's launches."""
+    from painter_tpu_torch import configs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(PAINTER, dtype="float32",
+                             img_size=PAINTER_1440)
+    model = _seeded_model(cfg, 71).train()
+    batch = _train_batch(cfg, 1, seed=72)
+    _zero_counts()
+    _grad_pair(model, batch, "K1/K2g vs plain attention at 1440x720", label,
+               True, ("kernel", "xla"), ("plain", "xla"))
+    vitl, gen = _read_counts()
+    print(f"# grad check 1440x720: launches K1-K5 {vitl}, K1g-K5g {gen}")
+    check(vitl == (cfg.depth, 0, 0, 0, 0)
+          and gen == (0, cfg.depth, 0, 0, 0),
+          f"1440x720 gradient check launched {vitl} {gen}")
+    del model
+    torch.cuda.empty_cache()
+    return gen[1]
+
+
+def phase_forward_2048(label):
+    """One b1 forward of Painter ViT-L built at img_size (2048, 1024) (a
+    128x64 grid, kh + kw 192 past K1's 190, hd + min 128: the domain's
+    edge) through ``InContextModel`` with ``attn_impl="kernel"``: 24 K1g
+    launches, no K1; its painted half against the same weights with plain
+    attention within FWD_BF16_TOL. Returns K1g's launches."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import engine
+    cfg = configs.get_config(PAINTER, dtype="bfloat16",
+                             img_size=PAINTER_2048)
+    model = _seeded_model(cfg, 81)
+    res = cfg.img_size[1]
+    rng = np.random.RandomState(82)
+    img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+    imgs, tgts = engine.build_query_batch([rng.rand(res, res, 3)], img2,
+                                          tgt2)
+    outs, secs = {}, {}
+    for impl in ("kernel", "plain"):
+        eng = engine.InContextModel(cfg, model, attn_impl=impl,
+                                    device="cuda")
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs[impl] = eng.run_queries(imgs, tgts, real_count=1)
+        secs[impl] = time.perf_counter() - t0
+        counts = _read_counts()
+        want = ((0,) * 5, (cfg.depth, 0, 0, 0, 0)) if impl == "kernel" \
+            else ((0,) * 5, (0,) * 5)
+        check(counts == want, f"2048x1024 {impl} forward launched {counts}")
+    got, ref = outs["kernel"], outs["plain"]
+    err = float(np.abs(got - ref).max())
+    check(got.shape == ref.shape == (1, res, res, 3)
+          and np.isfinite(got).all() and err <= FWD_BF16_TOL,
+          f"2048x1024 forward: {got.shape} {ref.shape}, max abs err {err}")
+    print(f"# Painter ViT-L 2048x1024 b1 forward (128x64 grid, K1g "
+          f"{cfg.depth} launches, no K1): max abs vs plain attention "
+          f"{err:.3e} (tol {FWD_BF16_TOL}); first call {secs['kernel']:.2f}"
+          f" s (plain {secs['plain']:.2f} s) [{label}]")
+    del model
+    torch.cuda.empty_cache()
+    return cfg.depth
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4563,6 +4811,12 @@ def main():
     timed("training times 1280x640", train_1280_times, label)
     *_, f32_k1, f32_k2, f32_k3, f32_k4 = timed(
         "fp32 training times 1280x640", train_1280_fp32_times, label)
+    t1440 = timed("training drive 1440x720", phase_train_1440, label)
+    *_, f1440_k2g = timed("training times 1440x720", train_1440_times,
+                          label)
+    gc1440_k2g = timed("gradient check 1440x720", phase_grad_check_1440,
+                       label)
+    fwd2048_k1g = timed("forward 2048x1024", phase_forward_2048, label)
     infer_k1 = video_k1 + cli_k1 + endpoint_k1 + painter_k1 + eval_k1 + \
         dp_k1
     dist_k = (remat_k1 + nccl_k1 + gloo_k1 + fe_k1 + tools_k1,
@@ -4587,7 +4841,10 @@ def main():
           f"K2, K3, K4) {t1280}; fp32 (3xTF32) K1: SegGPT ViT-L fp32 "
           f"serving {fp32_serve_k1}, 1280x640 fp32 update {f32_k1}; fp32 "
           f"K2: 1280x640 fp32 update {f32_k2}; fp32 (3xTF32) K3 / K4: "
-          f"1280x640 fp32 fused update {f32_k3} / {f32_k4}; tiny_test: K1g "
+          f"1280x640 fp32 fused update {f32_k3} / {f32_k4}; ViT-L 1440x720 "
+          f"training (K1, K2g, K3, K4) {t1440}, fp32 update K2g "
+          f"{f1440_k2g}, fp32 gradient check K2g {gc1440_k2g}; ViT-L "
+          f"2048x1024 forward K1g {fwd2048_k1g}; tiny_test: K1g "
           f"serving {tiny_k1g}, "
           f"training (K1g, K2g, K3g, K4g) {tiny_gen}, decoder "
           f"{WIDE_DECODER} training (tensor-core K3g, K4g) ({wide_k3g}, "
@@ -4607,10 +4864,10 @@ def main():
         r["m"], r["k"], r["n"], r["dtype"]) == (*K5G_MAIN[:3],
                                                 str(K5G_MAIN[3])))
 
-    def gen_row(kind, bh, d, grid):
+    def gen_row(kind, bh, d, grid, dtype=torch.bfloat16):
         return next(r for k, r in gen_attn_rows if k == kind
                     and (r["bh"], r["hd"], tuple(r["grid"])) == (bh, d, grid)
-                    and r["dtype"] == str(torch.bfloat16))
+                    and r["dtype"] == str(dtype))
     gen_tail = next(r for r in gen_tail_rows if (
         tuple(r["K3"]["shape"]), r["K3"]["c"]) == GENERIC_TAIL_MAIN
         and r["K3"]["dtype"] == str(torch.bfloat16) and r["K3"]["approx"])
@@ -4651,12 +4908,18 @@ def main():
                       serve_k5 + cli_k5 + eval_k5 + fp32_k5, k5_row),
         _kernel_entry("flash_relpos_generic_fwd",
                       "painter_tpu/kernels/flash_relpos.py:399",
-                      tiny_k1g + tiny_gen[0],
-                      gen_row("K1g", *GENERIC_TINY_SHAPE),
+                      tiny_k1g + tiny_gen[0] + fwd2048_k1g,
+                      gen_row("K1g", *GENERIC_FWD_MAIN),
                       "flash_relpos_generic"),
         _kernel_entry("flash_relpos_generic_bwd",
                       "painter_tpu/kernels/flash_relpos.py:438",
-                      tiny_gen[1], gen_row("K2g", *GENERIC_TINY_SHAPE),
+                      tiny_gen[1] + t1440[1],
+                      gen_row("K2g", *GENERIC_BWD_MAIN),
+                      "flash_relpos_generic"),
+        _kernel_entry("flash_relpos_generic_bwd_f32",
+                      "painter_tpu/kernels/flash_relpos.py:438",
+                      f1440_k2g + gc1440_k2g,
+                      gen_row("K2g", *GENERIC_BWD_MAIN, torch.float32),
                       "flash_relpos_generic"),
         _kernel_entry("decoder_tail_generic_fwd",
                       "painter_tpu/kernels/decoder_head.py:180",

@@ -6,11 +6,11 @@ Hand-written CUDA kernels replace the TPU kernels of
 (``_fwd_impl``) and ``csrc/flash_relpos_bwd.cu`` (``_bwd_impl``) at the
 ViT-L shapes, ``csrc/flash_relpos_generic.cu`` (both) at the rest. Their
 headers state the contracts, what bounds them on an H100 and what their
-designs do about that. At the ViT-L shapes both types run on the tensor
-cores: bf16 on ``wgmma`` bf16, fp32 on ``wgmma`` tf32 in three products
-per product (3xTF32, ``csrc/flash_relpos_tf32.cuh``: each operand split
-into two tf32 parts: fp32 accuracy, whatever PyTorch's TF32 flags
-say). The TPU kernels' layout devices (128-lane padding,
+designs do about that. Every route runs both types on the tensor cores:
+bf16 on ``wgmma`` bf16, fp32 on ``wgmma`` tf32 in three products per
+product (3xTF32, ``csrc/flash_relpos_tf32.cuh``: each operand split into
+two tf32 parts: fp32 accuracy, whatever PyTorch's TF32 flags say). The
+TPU kernels' layout devices (128-lane padding,
 a bias axis folded into the QK contraction, the ones-column in V, the
 fixed-max softmax) are not carried over.
 
@@ -34,8 +34,9 @@ kernels take beyond it. :func:`attention_route` sends a shape, by its
 shape alone, to the ViT-L kernels (``"vitl"``: head_dim 64 within their
 rel-term limits) or to the width-generic kernels K1g / K2g
 (``"generic"``: ``csrc/flash_relpos_generic.cu``, head dims padded with
-zeros to 16, 32, 64 or 128, rel terms of any length), and raises outside
-the domain with the JAX message. Each route counts its own launches:
+zeros to 16, 32, 64 or 128, rel terms of any length: the bias is staged
+per tile, so no kh + kw or kw limit), and raises outside the domain with
+the JAX message. Each route counts its own launches:
 ``flash_attention_relpos.launches`` / ``flash_attention_relpos_bwd.launches``
 the ViT-L kernels, ``flash_attention_relpos_generic.launches`` /
 ``flash_attention_relpos_bwd_generic.launches`` the generic ones.
@@ -55,7 +56,7 @@ HEAD_DIM = 64  # the ViT-L kernels' head dim
 # the JAX kernel's domain: hd + min(kh, kw) within one 128-lane MXU tile
 MXU_LANES = 128
 # the head dims K1g / K2g are built for; other head dims are zero-padded
-# to the next
+# to the next (80, a ViT-H-width head, runs at 128)
 GENERIC_HEAD_DIMS = (16, 32, 64, 128)
 # the bf16 forward keeps its 128 rows' rel terms in shared memory: 512
 # bytes per (kh + kw) entry beside ~129 KiB of Q and the K / V ring, under
@@ -150,8 +151,11 @@ def attention_route(hd: int, k_size: Tuple[int, int], length: int,
     rel-term limits (K1: kh + kw <= 190; K2: kh + kw <= 127, the raw
     rel-term staging of its bf16 dq kernel, in both types, in bf16 kw in
     [10, 40] and in fp32 kw <= 48). ``"generic"``: K1g / K2g, every other
-    shape of the JAX kernel's domain ``hd + min(kh, kw) <= 128``. Raises
-    outside it, with the message of the JAX kernel's ``_fold_axis``.
+    shape of the JAX kernel's domain ``hd + min(kh, kw) <= 128``, at
+    every size on the tensor cores (so Painter ViT-L's backward at
+    1440x720, a 90x45 grid, and its forward at 2048x1024, 128x64, run
+    there). Raises outside it, with the message of the JAX kernel's
+    ``_fold_axis``.
     """
     if dtype not in _FWD_FUNCS:
         raise TypeError(f"flash_relpos takes bf16 or fp32, got {dtype}")
@@ -245,7 +249,7 @@ def _bwd_kernel_fn(dtype: torch.dtype):
 def _generic_fn(direction: str, dtype: torch.dtype):
     fn = getattr(build.library("flash_relpos_generic"),
                  f"flash_relpos_generic_{direction}_{_DTYPE_NAMES[dtype]}")
-    n_ptrs = 7 if direction == "fwd" else 15
+    n_ptrs = 7 if direction == "fwd" else 14
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -400,16 +404,16 @@ def flash_attention_relpos_bwd_generic(q, k, v, rel_h, rel_w, out, lse,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     d_rel_h = torch.empty_like(rel_h)
     d_rel_w = torch.empty_like(rel_w)
-    # the rows' fp32 rel-bias sums, zeroed and owned by the dq kernel
-    g_h = torch.empty(rel_h.shape, dtype=torch.float32, device=q.device)
+    # the rows' fp32 d rel_w totals, zeroed and owned by the dq kernel
+    # (which keeps them in shared memory at kw <= 64 and reads no scratch)
     g_w = torch.empty(rel_w.shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _generic_fn("bwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(),
         rel_w.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d_rel_h.data_ptr(),
-        d_rel_w.data_ptr(), g_h.data_ptr(), g_w.data_ptr(), bh, lq, d,
-        k_size[0], k_size[1], float(scale), stream)
+        d_rel_w.data_ptr(), g_w.data_ptr(), bh, lq, d, k_size[0],
+        k_size[1], float(scale), stream)
     if rc:
         raise RuntimeError(
             f"flash_relpos_generic bwd launch failed: "

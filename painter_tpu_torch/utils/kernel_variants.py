@@ -31,7 +31,11 @@ of a parent commit unpacked), K3 and K4 built from DIR's sources are timed
 in turns with this checkout's (other, this, this, other), and so are K3g
 and K4g in bf16 (tanh) at ``GENERIC_SHAPES``: DIR's tensor-core sources
 (``decoder_tail_tc_*.cu``) under this checkout's wrappers
-(``fused_decoder_tail_tc`` / ``fused_decoder_tail_bwd_tc``).
+(``fused_decoder_tail_tc`` / ``fused_decoder_tail_bwd_tc``), and K1g /
+K2g at ``ATTENTION_SHAPES`` in both types: DIR's
+``flash_relpos_generic.cu`` under DIR's own wrappers
+(``kernels/flash_relpos.py`` loaded from DIR, so that builds with other
+entry-point arguments compare).
 
     python -m painter_tpu_torch.utils.kernel_variants [--iters 50]
         [--against DIR]
@@ -126,6 +130,14 @@ TAIL_KERNELS = (*dh.KERNEL_NAMES, "conv_kernel")
 # K3g / K4g's --against shapes ((B, H, W), C): the wide ViT-L update's
 # decoder and tiny_test's pixels at a 160-channel decoder
 GENERIC_SHAPES = (((1, 896, 448), 256), ((2, 64, 32), 160))
+# K1g / K2g's --against shapes (BH, hd, grid, types): tiny_test's training
+# shape and its 2x2 windows, where a call is launch-bound, and the
+# full-size 80x40 and 90x45 grids in bf16
+ATTENTION_SHAPES = ((4, 16, (8, 4), (torch.bfloat16, torch.float32)),
+                    (64, 16, (2, 2), (torch.bfloat16, torch.float32)),
+                    (16, 64, (80, 40), (torch.bfloat16,)),
+                    (16, 64, (90, 45), (torch.bfloat16,)))
+ATTENTION_KERNELS = ("fwd_kernel", "dq_kernel", "dkv_kernel")
 
 
 def apply_edits(edits: Edits, dst: str, csrc: str = build.CSRC) -> None:
@@ -268,6 +280,7 @@ def run(iters: int, against: str = "") -> List[dict]:
                                      fn, ref, iters))
     if against:
         rows += generic_against(against, max(2, iters // 10))
+        rows += attention_against(against, max(2, iters // 10))
     return rows
 
 
@@ -303,12 +316,63 @@ def generic_against(against: str, iters: int) -> List[dict]:
     return rows
 
 
+def attention_against(against: str, iters: int) -> List[dict]:
+    """K1g and K2g at ``ATTENTION_SHAPES`` built from the checkout at
+    ``against`` (its ``flash_relpos_generic.cu``, launched by its own
+    wrappers) in turns with this checkout's (other, this, this, other),
+    each held to the plain versions."""
+    import importlib.util
+    from painter_tpu_torch.kernels import flash_relpos as fr
+    root = os.path.join(against, "painter_tpu_torch", "kernels")
+    built = build_variants({"against_attention": ("flash_relpos_generic",
+                                                  {})},
+                           os.path.join(root, "csrc"))
+    use = {"flash_relpos_generic": built["against_attention"]}
+    spec = importlib.util.spec_from_file_location(
+        "against_flash_relpos", os.path.join(root, "flash_relpos.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    rows = []
+    for bh, hd, grid, dtypes in ATTENTION_SHAPES:
+        for dtype in dtypes:
+            g = torch.Generator(device="cuda").manual_seed(620)
+            length = grid[0] * grid[1]
+            q, k, v, dout = (torch.randn(bh, length, hd, generator=g,
+                                         device="cuda").to(dtype)
+                             for _ in range(4))
+            rel = [torch.randn(bh, length, n, generator=g,
+                               device="cuda").to(dtype) for n in grid]
+            scale = hd ** -0.5
+            fargs = (q, k, v, *rel, grid, scale)
+            out, lse = fr.flash_attention_relpos_reference(*fargs)
+            bargs = (q, k, v, *rel, out, lse, dout, grid, scale)
+            bref = fr.flash_attention_relpos_bwd_reference(*bargs)
+            kind = f"{str(dtype)[6:]} BH {bh} hd {hd} {grid[0]}x{grid[1]}"
+            for what, fns, fargs_, ref in (
+                    (f"K1g {kind}", (other.flash_attention_relpos_generic,
+                                     fr.flash_attention_relpos_generic),
+                     fargs, out),
+                    (f"K2g {kind}", (other.flash_attention_relpos_bwd_generic,
+                                     fr.flash_attention_relpos_bwd_generic),
+                     bargs, bref)):
+                # K1g's error is its out's (the first of out, lse)
+                for name in ("against", "kernel", "kernel", "against"):
+                    rows.append(_measure(
+                        what, name, use if name == "against" else {},
+                        functools.partial(fns[name == "kernel"], *fargs_),
+                        ref, iters, ATTENTION_KERNELS))
+            del q, k, v, dout, rel, out, lse, bref
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=50)
     parser.add_argument("--against", default="",
                         help="root of another checkout whose decoder-tail "
-                             "kernels are timed in turns with these")
+                             "and generic attention kernels are timed in "
+                             "turns with these")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
