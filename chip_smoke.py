@@ -63,8 +63,12 @@ a 160-channel decoder trained through ``train.main`` on the fused tail,
 and Painter ViT-L 896x448 with a 256-channel decoder (two updates, its ms
 per update and K3g / K4g's device share), both on K3g / K4g's tensor-core
 route (``csrc/decoder_tail_tc_*.cu``, every bf16 width from 9 but 64);
-and SegGPT ViT-L 896x448 in fp32 with the tanh GELU served at int8 and
-int8-fused (K5 in fp32). K2 at the 80x40 grid and K5 in fp32 are timed in
+SegGPT ViT-L 896x448 in fp32 with the tanh GELU served at int8 and
+int8-fused (K5 in fp32); and SegGPT at ViT-B width (768 -> 3072, 12
+heads, 12 blocks) at 896x448 in bf16 and in fp32 with the tanh GELU,
+served at int8 and int8-fused (K5g on the int8 tensor cores: 24 launches
+per b8 + b1 pair, held to the unquantized output and, in fp32, to the
+same forward with K5g's plain version). K2 at the 80x40 grid and K5 in fp32 are timed in
 turns with K2g and K5g called directly. Checks that each path went through its
 kernels, and that K2, K3, K4, K5, K2g, K3g, K4g and K5g give the same
 bits on two runs of the same inputs. Prints its
@@ -73,8 +77,10 @@ findings, then a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 exit code is not 0 and the last line is not printed. Needs a CUDA device;
 it imports nothing of JAX.
 """
+import functools
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -83,7 +89,8 @@ import time
 import numpy as np
 import torch
 
-from painter_tpu_torch.utils.cuda_timing import device_ms, event_ms
+from painter_tpu_torch.utils.cuda_timing import (device_ms, device_ms_by_kernel,
+                                              event_ms)
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak, same sheet
@@ -842,8 +849,9 @@ K5G_SHAPES = ((224, 128, 256, FP32), (37, 128, 256, FP32),
               (1, 128, 256, FP32), (16, 128, 256, FP32),
               (64, 32, 128, FP32), (37, 40, 136, FP32),
               (12544, 768, 3072, FP32))
-# the int8-fused tiny_test serving path's shape, K5g's main path
-K5G_MAIN = (64, 32, 128, torch.bfloat16)
+# the ViT-B-wide SegGPT's b8 trunk in bf16 (phase_int8_vitb_serving),
+# where K5g's time goes
+K5G_MAIN = (12544, 768, 3072, torch.bfloat16)
 
 
 def k5g_case(m, k, n, dtype, seed, iters):
@@ -884,7 +892,17 @@ def k5g_case(m, k, n, dtype, seed, iters):
     # the unfused w8a8 MLP, two torch._int_mm products, where cuBLASLt
     # takes both shapes; never called by K5g
     lib_ok = k5.int_mm_takes(m, k, n) and k5.int_mm_takes(m, n, k)
+    profile = None
+    if m * k * n > 1e9:
+        # the device kernels of one call: the tensor-core products, and
+        # none of the scalar design's gemm_kernel
+        profile = device_ms_by_kernel(lambda: k5.int8_mlp(*args), 3,
+                                      k5.K5G_KERNEL_NAMES + ("gemm_kernel",))
+        check(any("tc_gemm" in name for name in profile)
+              and not any("gemm_kernel" in name for name in profile),
+              f"{what}: the profile shows {sorted(profile)}")
     return {"m": m, "k": k, "n": n, "dtype": str(dtype), "max_abs_err": err,
+            "profile": profile,
             "rel_err": rel, "frac_differ": (diff > 0).float().mean().item(),
             "ms": event_ms(lambda: k5.int8_mlp(*args), iters),
             "plain_ms": event_ms(lambda: k5.int8_mlp_reference(*args),
@@ -920,6 +938,11 @@ def phase_k5_generic(label):
                   f"{r['bound_ms']:.4f} ({r['flop']:.4e} int8 ops at 1979 "
                   f"TOP/s, {r['bytes']:.4e} bytes at 3.35 TB/s: "
                   f"{r['bound_by']}) [{label}]")
+            if r["profile"]:
+                print(f"# K5g {r['dtype']} M={m} K={k} N={n}: device ms "
+                      "per call by kernel "
+                      + ", ".join(f"{name} {ms:.4f}" for name, ms in
+                                  r["profile"].items()) + f" [{label}]")
     return rows
 
 
@@ -1069,7 +1092,7 @@ def phase_tools(model, label):
     from painter_tpu_torch.ops.patches import unpatchify
     from painter_tpu_torch.utils import component_profile as cp
     from painter_tpu_torch.utils import kernel_stage_profile as ksp
-    from painter_tpu_torch.utils import parity, profiling
+    from painter_tpu_torch.utils import cuda_timing, parity, profiling
     from painter_tpu_torch.utils.torch_oracle import torch_forward
 
     # the parity CLI, both models at once
@@ -1161,14 +1184,21 @@ def phase_tools(model, label):
                                            [(rng.rand(res, res, 3),
                                              rng.rand(res, res, 3))])
     with tempfile.TemporaryDirectory() as d:
-        before = fr.flash_attention_relpos.launches
-        with profiling.trace(d):
-            eng.run_one_image(img1, tgt1)
-        k1_trace = fr.flash_attention_relpos.launches - before
-        files = glob.glob(os.path.join(d, "*.json"))
-        check(len(files) == 1, f"trace wrote {files}")
-        with open(files[0]) as f:
-            text = f.read()
+        # traced again (up to cuda_timing.CAPTURES times) while the trace
+        # holds no kernel at all: the profiler's lost capture
+        for _ in range(cuda_timing.CAPTURES):
+            for old in glob.glob(os.path.join(d, "*.json")):
+                os.remove(old)
+            before = fr.flash_attention_relpos.launches
+            with profiling.trace(d):
+                eng.run_one_image(img1, tgt1)
+            k1_trace = fr.flash_attention_relpos.launches - before
+            files = glob.glob(os.path.join(d, "*.json"))
+            check(len(files) == 1, f"trace wrote {files}")
+            with open(files[0]) as f:
+                text = f.read()
+            if re.search(r'"cat":\s*"kernel"', text):
+                break
         size = os.path.getsize(files[0])
     check("hop::fwd_kernel" in text, "the trace names no K1 kernel")
     timer = profiling.StepTimer(sync_every=2)
@@ -4129,6 +4159,10 @@ def phase_tiny_int8_serving(label):
     launches."""
     from painter_tpu_torch import configs
     from painter_tpu_torch.infer import engine
+    # TF32 off, as the fp32 bounds assume: a TF32 convolution in the
+    # decoder rounds the paths' ulp-level differences to TF32 steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     total = 0
     for dtype, gelu in TINY_INT8_CONFIGS:
         cfg = configs.get_config(TINY, dtype=dtype, gelu=gelu)
@@ -4420,6 +4454,126 @@ def phase_int8_fp32_serving(label):
     del model
     torch.cuda.empty_cache()
     return k5_total, b8_s, k1_total
+
+
+# SegGPT at ViT-B/16's widths (Dosovitskiy et al., ICLR 2021, Table 1:
+# hidden 768, MLP 3072, 12 heads, 12 layers), its taps ViTDet ViT-B's
+# global blocks 2 / 5 / 8 / 11 (detectron2 projects/ViTDet), all blocks
+# global at 896x448: head dim 64 on the 56x28 grid keeps the attention on
+# K1, and the MLP (768 -> 3072 -> 768) routes to K5g in both types
+VITB_WIDTHS = dict(embed_dim=768, depth=12, num_heads=12,
+                   out_indices=(2, 5, 8, 11))
+# fp32 tanh int8-fused vs int8 on that config, relative Frobenius: the
+# two paths round the same fp32 steps in other places, so hidden values an
+# ulp from a requantization boundary take other int8 codes. The plain
+# versions (int8-fused served with int8_mlp_reference in K5g's place,
+# against int8) read 1.8338e-03 (b8) and 1.8298e-03 (b1) on this seed on
+# the card (NVIDIA H100 80GB HBM3, 700 W); the bound is 1.5x the larger
+VITB_FP32_FUSED_VS_INT8 = 2.75e-3
+
+
+def phase_int8_vitb_serving(label):
+    """SegGPT at ViT-B width (``VITB_WIDTHS``), 896x448, full depth, served
+    through ``InContextModel`` unquantized, at quant "int8" and
+    "int8-fused" (and int8-fused with ``int8_mlp_reference`` in K5g's
+    place): a b8 run_queries_shared and a b1 run_one_image each, in bf16
+    and in fp32 with the tanh GELU. int8-fused runs K5g (K 768, N 3072, M
+    up to 25088) once per block per forward, K5 never; K1 once per block
+    per forward in every mode. bf16: each quantized output and int8-fused
+    vs int8 within INT8_REL_FRO. fp32: the quantized outputs within
+    INT8_REL_FRO of the fp32 one, int8-fused within
+    VITB_FP32_FUSED_VS_INT8 of int8 and within FP32_FUSED_VS_PLAIN of the
+    plain-MLP run. The b8 call's time per mode, and K5g's device share of
+    the int8-fused b8 call (one profile in bf16). Returns (K5g launches of
+    the checked calls, {(dtype, quant): seconds of a b8 call})."""
+    from painter_tpu_torch import configs
+    from painter_tpu_torch.infer import engine
+    from painter_tpu_torch.kernels import int8_mlp as k5
+    from painter_tpu_torch.ops import quant as quant_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k5g_total, b8_s = 0, {}
+    plain = "int8-fused, plain MLP"
+    for dtype, gelu, seed in (("bfloat16", "auto", 61),
+                              ("float32", "tanh", 63)):
+        cfg = configs.get_config("seggpt_vit_large_patch16_input896x448",
+                                 dtype=dtype, gelu=gelu, **VITB_WIDTHS)
+        hidden = int(cfg.mlp_ratio * cfg.embed_dim)
+        check(k5.int8_mlp_route(cfg.embed_dim, hidden, cfg.compute_dtype)
+              == "generic", f"ViT-B {dtype}: the MLP is not routed to K5g")
+        what = f"SegGPT ViT-B-wide {dtype} {gelu}"
+        model = _seeded_model(cfg, seed)
+        res = cfg.img_size[1]
+        rng = np.random.RandomState(seed + 1)
+        img2, tgt2 = rng.rand(res, res, 3), rng.rand(res, res, 3)
+        queries = (rng.rand(8, res, res, 3) * 255).astype(np.uint8)
+        img1, tgt1 = engine.build_prompt_batch(rng.rand(res, res, 3),
+                                               [(img2, tgt2)])
+        outs = {}
+        modes = ("none", "int8", "int8-fused") + (
+            (plain,) if dtype == "float32" else ())
+        for quant in modes:
+            eng = engine.InContextModel(cfg, model, device="cuda",
+                                        quant=quant.split(",")[0])
+            _zero_counts()
+            kernel = quant_ops.int8_mlp
+            if quant == plain:
+                quant_ops.int8_mlp = k5.int8_mlp_reference
+            try:
+                outs[quant] = (eng.run_queries_shared(queries, img2, tgt2),
+                               eng.run_one_image(img1, tgt1))
+            finally:
+                quant_ops.int8_mlp = kernel
+            (k1n, k5n), (k1g, k5g) = ((c[0], c[4]) for c in _read_counts())
+            want = 2 * cfg.depth if quant == "int8-fused" else 0
+            print(f"# {what} --quant {quant}: K5g launches {k5g} over a b8 "
+                  f"run_queries_shared and a b1 run_one_image (expected "
+                  f"{want}), K5 {k5n}; K1 {k1n} (expected {2 * cfg.depth}),"
+                  f" K1g {k1g}")
+            check(k5g == want and k5n == 0,
+                  f"{what} {quant}: K5g {k5g}, K5 {k5n}")
+            check(k1n == 2 * cfg.depth and k1g == 0,
+                  f"{what} {quant}: K1 {k1n}, K1g {k1g}")
+            k5g_total += k5g
+            if quant != plain:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run_queries_shared(queries, img2, tgt2)
+                b8_s[(dtype, quant)] = time.perf_counter() - t0
+            if quant == "int8-fused":
+                call = functools.partial(eng.run_queries_shared, queries,
+                                         img2, tgt2)
+                k5g_ms = device_ms(call, 1, k5.K5G_KERNEL_NAMES)
+                print(f"# {what} int8-fused b8 run_queries_shared: K5g "
+                      f"device time {k5g_ms:.2f} ms ({cfg.depth} calls) of "
+                      f"the {1e3 * b8_s[(dtype, quant)]:.2f} ms call "
+                      f"[{label}]")
+                if dtype == "bfloat16":
+                    profile_device(call, f"{what} int8-fused b8 "
+                                   "run_queries_shared", label)
+            del eng
+        for a, b, bound in (
+                ("int8", "none", INT8_REL_FRO),
+                ("int8-fused", "none", INT8_REL_FRO),
+                ("int8-fused", "int8", INT8_REL_FRO if dtype == "bfloat16"
+                 else VITB_FP32_FUSED_VS_INT8),
+                *(((plain, "int8", VITB_FP32_FUSED_VS_INT8),
+                   ("int8-fused", plain, FP32_FUSED_VS_PLAIN))
+                  if dtype == "float32" else ())):
+            devs = [_rel_fro(x, y) for x, y in zip(outs[a], outs[b])]
+            print(f"# {what} {a} vs {b}: relative Frobenius b8 "
+                  f"{devs[0]:.4e}, b1 {devs[1]:.4e} (bound {bound}) "
+                  f"[{label}]")
+            for o in outs[a]:
+                check(np.isfinite(o).all(), f"{what} {a}: non-finite values")
+            check(max(devs) <= bound, f"{what} {a} deviates {devs} from {b}")
+        del model, outs
+        torch.cuda.empty_cache()
+    print("# SegGPT ViT-B-wide b8 run_queries_shared (one call after the "
+          "checked one, host clock): "
+          + ", ".join(f"{d} {q} {s:.3f} s ({8 / s:.3f} pairs/s)"
+                      for (d, q), s in b8_s.items()) + f" [{label}]")
+    return k5g_total, b8_s
 
 
 def phase_grad_check_1280(label):
@@ -4806,6 +4960,8 @@ def main():
                                    phase_vitl_wide_decoder, label)
     fp32_k5, _, fp32_serve_k1 = timed("SegGPT ViT-L fp32 int8 serving",
                                       phase_int8_fp32_serving, label)
+    vitb_k5g, _ = timed("SegGPT ViT-B-wide int8 serving",
+                        phase_int8_vitb_serving, label)
     timed("gradient check 1280x640", phase_grad_check_1280, label)
     t1280 = timed("training drive 1280x640", phase_train_1280, label)
     timed("training times 1280x640", train_1280_times, label)
@@ -4852,7 +5008,8 @@ def main():
           f"(tensor-core K3g, K4g) ({vw_k3g}, {vw_k4g}); "
           f"K5g launches: "
           f"tiny_test int8-fused serving {tiny_k5g}, CLI tiny_test "
-          f"{cli_tiny_k5g}")
+          f"{cli_tiny_k5g}, SegGPT ViT-B-wide int8-fused serving (bf16 and "
+          f"fp32) {vitb_k5g}")
     tail = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
                 TAIL_MAIN_SHAPE and r["K3"]["dtype"] == str(torch.bfloat16))
     tail_f32 = next(r for r in tail_rows if tuple(r["K3"]["shape"]) ==
@@ -4935,7 +5092,7 @@ def main():
                       wide_k4g + vw_k4g, tc_tail["K4"]),
         _kernel_entry("int8_mlp_generic",
                       "painter_tpu/kernels/int8_mlp.py:87",
-                      tiny_k5g + cli_tiny_k5g, k5g_row)]
+                      tiny_k5g + cli_tiny_k5g + vitb_k5g, k5g_row)]
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

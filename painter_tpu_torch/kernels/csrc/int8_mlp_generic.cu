@@ -1,8 +1,9 @@
-// Width-generic fused w8a8 transformer MLP (K5g): per-row int8
-// quantization of x, the int8 fc1 product, dequantization + bias, tanh
-// GELU, per-row requantization from the fp32 hidden row, the int8 fc2
-// product, dequantization + bias -- at every shape and type the kernel of
-// int8_mlp.cu (K5: bf16, N = 4096, K a multiple of 128) does not take.
+// Width-generic fused w8a8 transformer MLP (K5g) on Hopper's int8 tensor
+// cores: per-row int8 quantization of x, the int8 fc1 product,
+// dequantization + bias, tanh GELU, per-row requantization from the fp32
+// hidden row, the int8 fc2 product, dequantization + bias -- at every shape
+// and type the kernel of int8_mlp.cu (K5: N = 4096, K a multiple of 128)
+// does not take.
 //
 // Replaces the TPU kernel painter_tpu/kernels/int8_mlp.py:_int8_mlp_2d
 // (kernel _kernel) at those shapes; the wrapper (kernels/int8_mlp.py
@@ -17,50 +18,76 @@
 //   a2   = max_j |h[j]|; hq = clip(rint(h * 127 / max(a2, 1e-20)), ...);
 //   r2   = a2 * (1/127)
 //   out[k] = int32(hq . W2q[k]) * (r2 * s2[k]) + b2[k], in x's type
-// rint rounds half to even, as jnp.round does. The int32 sums are exact;
-// every fp32 step is in the JAX kernel's order with no contraction into
-// FMAs, so kernel and plain version agree to the bit where their tanhf
-// does.
+// rint rounds half to even, as jnp.round does. The int32 sums are exact in
+// any order; every fp32 step is in the JAX kernel's order with no
+// contraction into FMAs, so kernel and plain version agree to the bit
+// where their tanhf does.
 //
-// What bounds it on an H100: operations, 2 * M * K * N * 2 int8 ops (2.1e11
-// at SegGPT ViT-L's b8 trunk in fp32, M 12544, K 1024, N 4096: 0.106 ms at
-// 1,979 TOP/s dense int8) against x and out, the weights, and here the fp32
-// hidden scratch (M N 4 B written once and read twice: 0.6 GB at that
-// shape, 0.18 ms at 3.35 TB/s). This design does not reach the tensor
-// cores: the products are __dp4a (four int8 products and their sum into an
-// int32 per instruction) on the SIMT pipes, a small fraction of the int8
-// tensor-core rate. It is the simple, right kernel first; speed is later
-// work (ROADMAP).
+// What bounds it on an H100: operations, 2 * M * K * N * 2 int8 ops (1.18e11
+// at a ViT-B-wide SegGPT's b8 trunk, M 12544, K 768, N 3072: 0.0598 ms at
+// 1,979 TOP/s dense int8) against x and out, the weights and, in this
+// design, the fp32 hidden scratch (M N 4 B written once and read once by
+// the requantization: 154 MB at that shape, ~0.05 ms each way at 3.35
+// TB/s).
 //
-// Design: four launches on the stream, no atomics, so two runs give the
-// same bits.
+// Design: four launches on the stream, no atomics and no split of the
+// depth, so two runs give the same bits.
 //   (a) quant_rows<T>: one warp per row of x; the row maximum by a butterfly
 //       of shuffles, then xq (M, Kp) int8 with K zero-padded to Kp, a
-//       multiple of 16 (16-byte aligned rows), and r1.
-//   (b) gemm_kernel<GeluEpi>: fc1 as a tiled int8 GEMM, 128 x 128 outputs
-//       per CTA of 256 threads (8 x 8 each in registers), the depth staged
-//       32 bytes at a time (double-buffered shared memory, k-word-major so
-//       a thread reads its four rows' words as one 16-byte load), products
-//       by __dp4a; depth past K is zero (masked loads), so the ragged edge
-//       adds nothing. The epilogue dequantizes, adds b1 and applies the
-//       GELU, writing fp32 h (M, N) to a scratch the wrapper allocates.
-//   (c) quant_rows<float> on h: hq (M, Np) and r2.
-//   (d) gemm_kernel<OutEpi<T>>: fc2 the same way, dequantization + bias,
-//       out (M, K) in x's type.
-// Any M works (M = 1 included): rows and columns past the matrix are
-// masked at the loads and the stores.
+//       multiple of 16 (16-byte aligned rows: a TMA source), and r1. Where
+//       K is a multiple of 8, a lane reads 8 elements a step (16-byte
+//       loads) and writes their 8 codes at once, as K5's quantize launch.
+//   (b) tc_gemm<BN, GeluEpi>: fc1 on wgmma.mma_async m64nBNk32 .s32.s8.s8.
+//       A CTA computes 128 rows x BN (128 or 256) output columns: two
+//       consumer warpgroups of 64 rows each hold the int32 accumulators (BN
+//       / 2 registers a thread, setmaxnreg 240), a producer warpgroup
+//       (setmaxnreg 24) of which one thread streams 128-byte-deep slices of
+//       A (xq) and B (W1q rows) by TMA -- 2-D maps, 128-byte swizzle, both
+//       K-major as the torch layouts give them -- through a ring of 4 stages
+//       guarded by full / empty mbarriers; each slice is four k32 products.
+//       This is K5's fc2 mainloop with its fixed N, K % 128 and cluster
+//       replaced by tile counts known at run time. The ragged edges: depth
+//       past K, rows past M and columns past N lie outside the TMA maps,
+//       which zero-fill them (a zero int8 adds nothing), and the stores
+//       mask them. Every box starts inside its map (the last depth slice at
+//       t KC < K, the tiles at m0 < M, n0 < N), with one B box of BN rows.
+//       The epilogue dequantizes, adds b1 and applies the GELU on the
+//       accumulator fragments, writing fp32 h (M, N) to a scratch the
+//       wrapper allocates (pairs of columns as one 8-byte store where N is
+//       even), and each row's |h| maximum over the CTA's BN columns (a
+//       row's columns lie in one quad of lanes: two shuffles) to tmax (M,
+//       N / BN), no atomics.
+//   (c) quant_rows<float> on h: hq (M, Np) and r2. The requantization needs
+//       the maximum over all N of a row, which spans N / BN CTAs of (b):
+//       this launch takes it as the maximum of the row's tmax entries, so
+//       it reads h once (maxima are order-free: the same bits as the
+//       row's own maximum).
+//   (d) tc_gemm<BN, OutEpi<T>>: fc2 the same way (A = hq, B = W2q rows),
+//       dequantization + bias, out (M, K) in x's type.
+// BN: the wrapper's choice (int8_mlp.py k5g_tile_n), the width whose waves
+// of one CTA per SM give each SM the fewest output columns.
+// Weights whose row stride is not a multiple of 16 bytes (K or N not a
+// multiple of 16) cannot be TMA sources: the wrapper stages a zero-padded
+// copy per call (ldw1 / ldw2 below; at most a few MB, and none at the
+// widths the port's models use), which keeps one load path -- TMA -- for
+// every shape instead of a second cp.async mainloop for the odd ones.
 //
 // The launchers allocate nothing and do not synchronize: the caller passes
-// xq, r1, h, hq and r2 as scratch. They return cudaGetLastError() so the
-// caller can raise on a refused launch.
+// xq, r1, h, hq and r2 as scratch. They return cudaGetLastError() (or
+// cudaErrorInvalidValue for operands they do not take) so the caller can
+// raise on a refused launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
+namespace {
+namespace k5g {
+
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -97,236 +124,399 @@ __device__ __forceinline__ float dequant(int acc, float r, float s, float b) {
 
 constexpr int Q_WARPS = 8;
 
+// elements [k, k + 8) of a row as four fp32 pairs (16-byte loads)
+__device__ __forceinline__ void load8(const bf16* p, float2 (&f)[4]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __bfloat1622float2(h[i]);
+}
+__device__ __forceinline__ void load8(const float* p, float2 (&f)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = make_float2(a.x, a.y);
+  f[1] = make_float2(a.z, a.w);
+  f[2] = make_float2(b.x, b.y);
+  f[3] = make_float2(b.z, b.w);
+}
+
+// one warp per row: the row maximum by a butterfly of shuffles (maxima are
+// order-free) over the row, or over the ``tiles`` maxima ``tmax`` (M,
+// tiles) already taken of it, then the codes with the row zero-padded to
+// ldq. ``vec``: K is a multiple of 8 and the rows 16-byte aligned, so a
+// lane takes 8 elements a step by 16-byte loads and writes their 8 codes
+// at once
 template <typename T>
 __global__ void __launch_bounds__(Q_WARPS * 32)
 quant_rows(const T* __restrict__ x, int8_t* __restrict__ q,
-           float* __restrict__ rs, int M, int K, int ldq) {
+           float* __restrict__ rs, int M, int K, int ldq, int vec,
+           const float* __restrict__ tmax, int tiles) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * Q_WARPS + (threadIdx.x >> 5);
   if (row >= M) return;
   const T* xr = x + (size_t)row * K;
+  int8_t* qr = q + (size_t)row * ldq;
   float amax = 0.0f;
-  for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(to_f(xr[k])));
+  if (tmax) {
+    for (int i = lane; i < tiles; i += 32)
+      amax = fmaxf(amax, tmax[(size_t)row * tiles + i]);
+  } else if (vec) {
+    for (int k = 8 * lane; k < K; k += 256) {
+      float2 f[4];
+      load8(xr + k, f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        amax = fmaxf(amax, fmaxf(fabsf(f[i].x), fabsf(f[i].y)));
+    }
+  } else {
+    for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(to_f(xr[k])));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float inv = 127.0f / fmaxf(amax, 1e-20f);
-  int8_t* qr = q + (size_t)row * ldq;
-  for (int k = lane; k < ldq; k += 32)
-    qr[k] = k < K ? quant(to_f(xr[k]), inv) : (int8_t)0;
+  if (vec) {
+    for (int k = 8 * lane; k < K; k += 256) {
+      float2 f[4];
+      load8(xr + k, f);
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i / 2] |=
+            ((uint32_t)(uint8_t)quant(f[i].x, inv) << (16 * (i % 2))) |
+            ((uint32_t)(uint8_t)quant(f[i].y, inv) << (16 * (i % 2) + 8));
+      *reinterpret_cast<uint2*>(qr + k) = make_uint2(w[0], w[1]);
+    }
+    for (int k = K + lane; k < ldq; k += 32) qr[k] = 0;
+  } else {
+    for (int k = lane; k < ldq; k += 32)
+      qr[k] = k < K ? quant(to_f(xr[k]), inv) : (int8_t)0;
+  }
   if (lane == 0) rs[row] = amax * (1.0f / 127.0f);
 }
 
-// --- (b), (d) the int8 products ---------------------------------------------
+// --- (b), (d) the int8 products on the tensor cores ------------------------
 
-constexpr int BM = 128, BN = 128;    // outputs per CTA
-constexpr int BKB = 32;              // depth bytes per stage
-constexpr int BKW = BKB / 4;         // depth words (four int8 each)
-constexpr int G_THREADS = 256;
-constexpr int LDS = BM + 4;          // words per depth word in shared memory
+constexpr int BM = 128;               // rows per CTA, 64 per warpgroup
+constexpr int KC = 128;               // depth bytes per ring stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;          // two consumer warpgroups + producer
+constexpr int CONSUMERS = 256;
+constexpr int A_BYTES = BM * KC;      // 16 KiB of A per stage
 
-// 16 bytes of row ``row`` from depth k0, zero past ``K`` (and for a row past
-// the matrix, ``row == nullptr``); ``vec``: the row is 16-byte aligned
-__device__ __forceinline__ uint4 load16(const int8_t* row, int k0, int K,
-                                        bool vec) {
-  if (row == nullptr || k0 >= K) return make_uint4(0u, 0u, 0u, 0u);
-  if (vec && k0 + 16 <= K)
-    return __ldg(reinterpret_cast<const uint4*>(row + k0));
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    if (k0 + i < K)
-      w[i >> 2] |= (uint32_t)(uint8_t)__ldg(row + k0 + i) << (8 * (i & 3));
-  return make_uint4(w[0], w[1], w[2], w[3]);
+template <int BN>
+__host__ __device__ constexpr int stage_bytes() { return A_BYTES + BN * KC; }
+template <int BN>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024 + STAGES * stage_bytes<BN>() + 16 * STAGES;
+}
+static_assert(smem_bytes<256>() <= 232448, "K5g shared memory");
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da,
+                                           uint64_t db, int acc);
+template <>
+__device__ __forceinline__ void wgmma_tile<128>(int (&d)[64], uint64_t da,
+                                                uint64_t db, int acc) {
+  wgmma_m64n128k32_s8(d, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void wgmma_tile<256>(int (&d)[128], uint64_t da,
+                                                uint64_t db, int acc) {
+  wgmma_m64n256k32_s8(d, da, db, acc);
 }
 
-// 16 depth bytes of one row as depth words lw..lw+3 of column lr
-__device__ __forceinline__ void put4(int (*dst)[LDS], int lw, int lr,
-                                     uint4 v) {
-  dst[lw][lr] = (int)v.x;
-  dst[lw + 1][lr] = (int)v.y;
-  dst[lw + 2][lr] = (int)v.z;
-  dst[lw + 3][lr] = (int)v.w;
-}
-
-// fc1's epilogue: fp32 h = gelu(dequant + b1)
+// fc1's epilogue: fp32 h = gelu(dequant + b1), and each row's |h| maximum
+// over the CTA's columns into tmax (M, tiles)
 struct GeluEpi {
+  typedef float Out;
+  static constexpr bool ROW_MAX = true;
   const float* r;
   const float* s;
   const float* b;
   float* out;
-  __device__ __forceinline__ void operator()(size_t at, int acc, float r_m,
-                                             float s_n, float b_n) const {
-    out[at] = gelu_tanh(dequant(acc, r_m, s_n, b_n));
+  float* tmax;
+  __device__ __forceinline__ float operator()(int acc, float r_m, float s_n,
+                                              float b_n) const {
+    return gelu_tanh(dequant(acc, r_m, s_n, b_n));
   }
 };
 
 // fc2's epilogue: out = dequant + b2, in the output type
 template <typename T>
 struct OutEpi {
+  typedef T Out;
+  static constexpr bool ROW_MAX = false;
   const float* r;
   const float* s;
   const float* b;
   T* out;
-  __device__ __forceinline__ void operator()(size_t at, int acc, float r_m,
-                                             float s_n, float b_n) const {
-    out[at] = from_f<T>(dequant(acc, r_m, s_n, b_n));
+  __device__ __forceinline__ float operator()(int acc, float r_m, float s_n,
+                                              float b_n) const {
+    return dequant(acc, r_m, s_n, b_n);
   }
 };
 
-// C[m, n] = sum_k A[m, k] B[n, k] over k < K for A (M, >= K) int8 with row
-// stride lda (a multiple of 16), B (N, K) int8 with row stride ldb, then
-// epi at C's (m, n) (row stride N)
-template <typename Epi>
-__global__ void __launch_bounds__(G_THREADS)
-gemm_kernel(const int8_t* __restrict__ A, int lda,
-            const int8_t* __restrict__ B, int ldb, int M, int N, int K,
-            int b_vec, Epi epi) {
-  __shared__ __align__(16) int As[2][BKW][LDS];
-  __shared__ __align__(16) int Bs[2][BKW][LDS];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // the loader: thread t brings 16 depth bytes (k-words lw..lw+3) of row t/2
-  const int lr = tid >> 1, lw = (tid & 1) * 4;
-  const int8_t* arow = m0 + lr < M ? A + (size_t)(m0 + lr) * lda : nullptr;
-  const int8_t* brow = n0 + lr < N ? B + (size_t)(n0 + lr) * ldb : nullptr;
-  const int nk = (K + BKB - 1) / BKB;
+// outputs (m, c) and (m, c + 1) of a row-major output; ``vec``: one
+// aligned store (the row stride is even, so m N + c is)
+__device__ __forceinline__ void store2(float* p, float a, float b, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b, bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16_rn(a);
+    p[1] = __float2bfloat16_rn(b);
+  }
+}
 
-  uint4 ra = load16(arow, 4 * lw, K, true);
-  uint4 rb = load16(brow, 4 * lw, K, b_vec != 0);
-  put4(As[0], lw, lr, ra);
-  put4(Bs[0], lw, lr, rb);
+// C[m, n] = sum_k A[m, k] B[n, k] over k < K, A (M, K) and B (N, K) int8
+// through the TMA maps tm_a (boxes of BM rows) and tm_b (boxes of BN rows),
+// then epi at every (m < M, n < N) of C (row stride N)
+template <int BN, typename Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+tc_gemm(const __grid_constant__ CUtensorMap tm_a,
+        const __grid_constant__ CUtensorMap tm_b, int M, int N, int K,
+        Epi epi) {
+  constexpr int STAGE = stage_bytes<BN>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_full = s_base + STAGES * STAGE;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int nk = (K + KC - 1) / KC;
+
+  if (tid == CONSUMERS) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // thread (tx, ty) owns rows {4 ty + i, 64 + 4 ty + i} and columns
-  // {4 tx + j, 64 + 4 tx + j}, i, j < 4
-  const int tx = tid & 15, ty = tid >> 4;
-  int acc[8][8];
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == CONSUMERS) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(bar_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        const uint32_t dst = s_base + s * STAGE;
+        mbar_expect_tx(bar_full + 8 * s, STAGE);
+        tma_load_2d(dst, &tm_a, t * KC, m0, bar_full + 8 * s);
+        tma_load_2d(dst + A_BYTES, &tm_b, t * KC, n0, bar_full + 8 * s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    int acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
-  for (int t = 0; t < nk; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < nk) {
-      ra = load16(arow, (t + 1) * BKB + 4 * lw, K, true);
-      rb = load16(brow, (t + 1) * BKB + 4 * lw, K, b_vec != 0);
-    }
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+      const uint32_t st = s_base + s * STAGE;
+      const uint64_t da = desc_sw128(st + wg * (A_BYTES / 2), 16, 1024);
+      const uint64_t db = desc_sw128(st + A_BYTES, 16, 1024);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kw = 0; kw < BKW; ++kw) {
-      const int4 a0 = *reinterpret_cast<const int4*>(&As[cur][kw][4 * ty]);
-      const int4 a1 =
-          *reinterpret_cast<const int4*>(&As[cur][kw][64 + 4 * ty]);
-      const int4 b0 = *reinterpret_cast<const int4*>(&Bs[cur][kw][4 * tx]);
-      const int4 b1 =
-          *reinterpret_cast<const int4*>(&Bs[cur][kw][64 + 4 * tx]);
-      const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const int b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+      for (int kk = 0; kk < KC / 32; ++kk)
+        wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, t > 0 || kk > 0);
+      wgmma_commit();
+      if (t > 0) {
+        wgmma_wait<1>();
+        mbar_arrive(bar_empty + 8 * ((t - 1) % STAGES));
+      }
     }
-    // the other buffer was last read before the previous barrier
-    if (t + 1 < nk) {
-      put4(As[cur ^ 1], lw, lr, ra);
-      put4(Bs[cur ^ 1], lw, lr, rb);
-    }
-    __syncthreads();
-  }
+    wgmma_wait0();
+    fence_regs(acc);
+    mbar_arrive(bar_empty + 8 * ((nk - 1) % STAGES));
 
-  float s_n[8], b_n[8];
-  int n_of[8];
+    // element 4j + 2h + e of the fragments is row ra + 8h, column
+    // n0 + 8j + 2tq + e
+    const int ra = m0 + wg * 64 + warp * 16 + g;
+    const float r_a = ra < M ? epi.r[ra] : 0.0f;
+    const float r_b = ra + 8 < M ? epi.r[ra + 8] : 0.0f;
+    const bool vec = (N & 1) == 0;
+    typedef typename Epi::Out Out;
+    float ma = 0.0f, mb = 0.0f;  // |value| maxima of rows ra, ra + 8
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    n_of[j] = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-    s_n[j] = n_of[j] < N ? epi.s[n_of[j]] : 0.0f;
-    b_n[j] = n_of[j] < N ? epi.b[n_of[j]] : 0.0f;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * tq;
+      if (c >= N) continue;
+      const bool two = c + 1 < N;
+      const float s0 = epi.s[c], b0 = epi.b[c];
+      const float s1 = two ? epi.s[c + 1] : 0.0f;
+      const float b1 = two ? epi.b[c + 1] : 0.0f;
+      if (ra < M) {
+        Out* p = epi.out + (size_t)ra * N + c;
+        const float v0 = epi(acc[4 * j], r_a, s0, b0);
+        const float v1 = two ? epi(acc[4 * j + 1], r_a, s1, b1) : 0.0f;
+        ma = fmaxf(ma, fmaxf(fabsf(v0), fabsf(v1)));
+        if (two)
+          store2(p, v0, v1, vec);
+        else
+          p[0] = from_f<Out>(v0);
+      }
+      if (ra + 8 < M) {
+        Out* p = epi.out + (size_t)(ra + 8) * N + c;
+        const float v0 = epi(acc[4 * j + 2], r_b, s0, b0);
+        const float v1 = two ? epi(acc[4 * j + 3], r_b, s1, b1) : 0.0f;
+        mb = fmaxf(mb, fmaxf(fabsf(v0), fabsf(v1)));
+        if (two)
+          store2(p, v0, v1, vec);
+        else
+          p[0] = from_f<Out>(v0);
+      }
+    }
+    if constexpr (Epi::ROW_MAX) {
+      // a row's columns lie in the four lanes of its quad
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
+        mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
+      }
+      if (tq == 0) {
+        if (ra < M) epi.tmax[(size_t)ra * gridDim.x + blockIdx.x] = ma;
+        if (ra + 8 < M)
+          epi.tmax[(size_t)(ra + 8) * gridDim.x + blockIdx.x] = mb;
+      }
+    }
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (m >= M) continue;
-    const float r_m = epi.r[m];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (n_of[j] < N)
-        epi((size_t)m * N + n_of[j], acc[i][j], r_m, s_n[j], b_n[j]);
-  }
+}
+
+// an int8 matrix of ``rows`` rows of ``cols`` bytes at row stride ``ld`` (a
+// multiple of 16) as TMA boxes of (box_rows, KC bytes); box elements past
+// ``cols`` or ``rows`` are zero-filled
+bool map_i8(CUtensorMap* map, const void* ptr, int rows, int cols, int ld,
+            int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld};
+  const cuuint32_t box[2] = {KC, (cuuint32_t)box_rows};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ptr, dims, strides,
+                    box);
+}
+
+template <int BN, typename Epi>
+int launch_gemm(const int8_t* a, int lda, const int8_t* b, int ldb, int M,
+                int N, int K, const Epi& epi, cudaStream_t st) {
+  CUtensorMap m_a, m_b;
+  if (!map_i8(&m_a, a, M, K, lda, BM) || !map_i8(&m_b, b, N, K, ldb, BN))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc_gemm<BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<BN>());
+  if (err != cudaSuccess) return (int)err;
+  tc_gemm<BN, Epi><<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), THREADS,
+                     smem_bytes<BN>(), st>>>(m_a, m_b, M, N, K, epi);
+  return (int)cudaGetLastError();
+}
+
+template <typename Epi>
+int gemm(const int8_t* a, int lda, const int8_t* b, int ldb, int M, int N,
+         int K, int bn, const Epi& epi, cudaStream_t st) {
+  return bn == 256 ? launch_gemm<256>(a, lda, b, ldb, M, N, K, epi, st)
+                   : launch_gemm<128>(a, lda, b, ldb, M, N, K, epi, st);
 }
 
 inline int round16(int v) { return (v + 15) / 16 * 16; }
 
-dim3 gemm_grid(int rows, int cols) {
-  return dim3((cols + BN - 1) / BN, (rows + BM - 1) / BM);
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
 int launch(const void* x, const void* w1, const void* s1, const void* b1,
            const void* w2, const void* s2, const void* b2, void* out,
-           void* xq, void* row1, void* h, void* hq, void* row2, int M, int K,
-           int N, int w1_vec, int w2_vec, cudaStream_t st) {
-  if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+           void* xq, void* row1, void* h, void* tmax, void* hq, void* row2,
+           int M, int K, int N, int ldw1, int ldw2, int bn1, int bn2,
+           cudaStream_t st) {
+  const bool bn_ok = (bn1 == 128 || bn1 == 256) && (bn2 == 128 || bn2 == 256);
+  if (M < 1 || K < 1 || N < 1 || !bn_ok || ldw1 < K || ldw1 % 16 ||
+      ldw2 < N || ldw2 % 16 || !aligned16(w1) || !aligned16(w2) ||
+      !aligned16(xq) || !aligned16(hq))
+    return (int)cudaErrorInvalidValue;
   const int kp = round16(K), np = round16(N);
   const dim3 q_grid((M + Q_WARPS - 1) / Q_WARPS);
   quant_rows<T><<<q_grid, Q_WARPS * 32, 0, st>>>(
       static_cast<const T*>(x), static_cast<int8_t*>(xq),
-      static_cast<float*>(row1), M, K, kp);
+      static_cast<float*>(row1), M, K, kp, K % 8 == 0 && aligned16(x),
+      nullptr, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const GeluEpi fc1{static_cast<const float*>(row1),
                     static_cast<const float*>(s1),
-                    static_cast<const float*>(b1), static_cast<float*>(h)};
-  gemm_kernel<GeluEpi><<<gemm_grid(M, N), G_THREADS, 0, st>>>(
-      static_cast<const int8_t*>(xq), kp, static_cast<const int8_t*>(w1), K,
-      M, N, K, w1_vec, fc1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+                    static_cast<const float*>(b1), static_cast<float*>(h),
+                    static_cast<float*>(tmax)};
+  int rc = gemm(static_cast<const int8_t*>(xq), kp,
+                static_cast<const int8_t*>(w1), ldw1, M, N, K, bn1, fc1, st);
+  if (rc) return rc;
 
   quant_rows<float><<<q_grid, Q_WARPS * 32, 0, st>>>(
       static_cast<const float*>(h), static_cast<int8_t*>(hq),
-      static_cast<float*>(row2), M, N, np);
+      static_cast<float*>(row2), M, N, np, N % 8 == 0 && aligned16(h),
+      static_cast<const float*>(tmax), (N + bn1 - 1) / bn1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const OutEpi<T> fc2{static_cast<const float*>(row2),
                       static_cast<const float*>(s2),
                       static_cast<const float*>(b2), static_cast<T*>(out)};
-  gemm_kernel<OutEpi<T>><<<gemm_grid(M, K), G_THREADS, 0, st>>>(
-      static_cast<const int8_t*>(hq), np, static_cast<const int8_t*>(w2), N,
-      M, K, N, w2_vec, fc2);
-  return (int)cudaGetLastError();
+  return gemm(static_cast<const int8_t*>(hq), np,
+              static_cast<const int8_t*>(w2), ldw2, M, K, N, bn2, fc2, st);
 }
 
+}  // namespace k5g
 }  // namespace
 
 extern "C" {
 
 // x (M, K) -> out (M, K) in x's type. Scratch of the caller: xq (M, Kp)
-// int8, row1 (M,) fp32, h (M, N) fp32, hq (M, Np) int8, row2 (M,) fp32,
-// with Kp and Np K and N rounded up to multiples of 16. w1_vec / w2_vec:
-// the weight's rows are 16-byte aligned (K resp. N a multiple of 16 and
-// the pointer aligned), so the loads may take 16 bytes at once.
+// int8, row1 (M,) fp32, h (M, N) fp32, tmax (M, ceil(N / bn1)) fp32, hq
+// (M, Np) int8, row2 (M,) fp32, with Kp and Np K and N rounded up to
+// multiples of 16. The weights' row
+// strides ldw1 (>= K) and ldw2 (>= N) are multiples of 16 bytes, their
+// columns past K / N are not read; xq, hq and the weights are 16-byte
+// aligned. bn1 / bn2: fc1's and fc2's output-tile widths, 128 or 256.
 int int8_mlp_generic_bf16(const void* x, const void* w1, const void* s1,
                           const void* b1, const void* w2, const void* s2,
                           const void* b2, void* out, void* xq, void* row1,
-                          void* h, void* hq, void* row2, int M, int K, int N,
-                          int w1_vec, int w2_vec, void* stream) {
-  return launch<bf16>(x, w1, s1, b1, w2, s2, b2, out, xq, row1, h, hq, row2,
-                      M, K, N, w1_vec, w2_vec,
-                      static_cast<cudaStream_t>(stream));
+                          void* h, void* tmax, void* hq, void* row2, int M,
+                          int K, int N, int ldw1, int ldw2, int bn1, int bn2,
+                          void* stream) {
+  return k5g::launch<k5g::bf16>(x, w1, s1, b1, w2, s2, b2, out, xq, row1, h,
+                                tmax, hq, row2, M, K, N, ldw1, ldw2, bn1, bn2,
+                                static_cast<cudaStream_t>(stream));
 }
 
 int int8_mlp_generic_f32(const void* x, const void* w1, const void* s1,
                          const void* b1, const void* w2, const void* s2,
                          const void* b2, void* out, void* xq, void* row1,
-                         void* h, void* hq, void* row2, int M, int K, int N,
-                         int w1_vec, int w2_vec, void* stream) {
-  return launch<float>(x, w1, s1, b1, w2, s2, b2, out, xq, row1, h, hq,
-                       row2, M, K, N, w1_vec, w2_vec,
-                       static_cast<cudaStream_t>(stream));
+                         void* h, void* tmax, void* hq, void* row2, int M,
+                         int K, int N, int ldw1, int ldw2, int bn1, int bn2,
+                         void* stream) {
+  return k5g::launch<float>(x, w1, s1, b1, w2, s2, b2, out, xq, row1, h,
+                            tmax, hq, row2, M, K, N, ldw1, ldw2, bn1, bn2,
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* int8_mlp_generic_error_string(int code) {

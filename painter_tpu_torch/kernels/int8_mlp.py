@@ -10,7 +10,10 @@ ViT-L widths in bf16 and fp32: the fp32 hidden activation stays on the SM
 its int8 codes pass to fc2 through a scratch tensor.
 ``csrc/int8_mlp_generic.cu`` (K5g) serves every other shape: four
 launches (quantize, fc1 with the GELU into an fp32 hidden scratch,
-requantize, fc2). Their headers
+requantize, fc2), both products on the int8 tensor cores (``wgmma``)
+with the tile counts, the output-tile width (:func:`k5g_tile_n`) and
+the weights' row strides (:func:`k5g_staged_weight`) given at run
+time. Their headers
 state the contracts, the bound on an H100 and what the designs do about
 it. The TPU kernel's row-block choice (``default_block_m``) is a layout
 device and is not carried over.
@@ -35,6 +38,7 @@ of 8) and on the CPU, else an exact product through float64 on the card
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -209,6 +213,46 @@ def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+# K5g's tiles (csrc/int8_mlp_generic.cu): rows per CTA and the output-tile
+# widths its products take
+K5G_ROWS = 128
+K5G_TILE_N = (128, 256)
+# K5g's device kernels (``namespace k5g``): the row quantization and the
+# tensor-core product
+K5G_KERNEL_NAMES = ("k5g::quant_rows", "k5g::tc_gemm")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def k5g_tile_n(m: int, n: int, sms: int) -> int:
+    """The output-tile width of a K5g product of M rows and N output
+    columns on a card of ``sms`` SMs: of 128 and 256, the one whose waves
+    of CTAs (one per SM) leave each SM the fewest output columns to
+    compute, 256 on a tie (it reads each A tile once per 256 columns)."""
+    row_tiles = -(-m // K5G_ROWS)
+
+    def columns_per_sm(bn):
+        return -(-row_tiles * -(-n // bn) // sms) * bn
+
+    return min(reversed(K5G_TILE_N), key=columns_per_sm)
+
+
+def k5g_staged_weight(w: torch.Tensor) -> torch.Tensor:
+    """An int8 weight (rows, cols) as K5g's TMA maps take it: itself where
+    its rows are 16-byte aligned (cols a multiple of 16, the storage
+    aligned), else a copy with the columns zero-padded to a multiple of
+    16. The kernel reads no column past ``cols``."""
+    rows, cols = w.shape
+    if cols % 16 == 0 and w.data_ptr() % 16 == 0:
+        return w
+    staged = w.new_zeros((rows, _round16(cols)))
+    staged[:, :cols] = w
+    return staged
+
+
 def int8_mlp_generic(x, w1q, s1, b1, w2q, s2, b2):
     """K5g, the width-generic fused w8a8 MLP: x (..., K) -> (..., K) in
     x.dtype, bf16 or fp32, any K, N and rows.
@@ -231,22 +275,25 @@ def int8_mlp_generic(x, w1q, s1, b1, w2q, s2, b2):
     if m == 0:
         return out.reshape(*x.shape[:-1], k)
     dev = x.device
+    w1c, w2c = k5g_staged_weight(w1c), k5g_staged_weight(w2c)
+    sms = _sm_count(dev.index)
+    bn1, bn2 = k5g_tile_n(m, n, sms), k5g_tile_n(m, k, sms)
     # scratch of the four launches: xq and hq with rows zero-padded to 16
-    # bytes, the fp32 hidden activation, the two row scales
+    # bytes (TMA sources), the fp32 hidden activation and its rows' |h|
+    # maxima per fc1 tile, the two row scales
     xq = torch.empty((m, _round16(k)), dtype=torch.int8, device=dev)
     h = torch.empty((m, n), dtype=torch.float32, device=dev)
+    tmax = torch.empty((m, -(-n // bn1)), dtype=torch.float32, device=dev)
     hq = torch.empty((m, _round16(n)), dtype=torch.int8, device=dev)
     rows = torch.empty((2, m), dtype=torch.float32, device=dev)
-    # 16-byte loads of a weight row where its rows are aligned
-    vec1 = int(k % 16 == 0 and w1c.data_ptr() % 16 == 0)
-    vec2 = int(n % 16 == 0 and w2c.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_fn("int8_mlp_generic",
-                    f"int8_mlp_generic_{_DTYPES[x.dtype]}", 13, 5)(
+                    f"int8_mlp_generic_{_DTYPES[x.dtype]}", 14, 7)(
         x2.data_ptr(), w1c.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
         w2c.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
         out.data_ptr(), xq.data_ptr(), rows[0].data_ptr(), h.data_ptr(),
-        hq.data_ptr(), rows[1].data_ptr(), m, k, n, vec1, vec2, stream)
+        tmax.data_ptr(), hq.data_ptr(), rows[1].data_ptr(), m, k, n,
+        w1c.shape[1], w2c.shape[1], bn1, bn2, stream)
     _raise_if(rc, "int8_mlp_generic")
     int8_mlp_generic.launches += 1
     return out.reshape(*x.shape[:-1], k)

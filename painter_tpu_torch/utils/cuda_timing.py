@@ -28,21 +28,39 @@ def event_ms(fn: Callable[[], object], iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+# captures of one window before device_ms_by_kernel gives up on a
+# profiler that records no device activity at all
+CAPTURES = 3
+
+
+def _device_events(fn: Callable[[], object], iters: int):
+    """torch.profiler's events of ``iters`` calls of ``fn``, taken again
+    (up to ``CAPTURES`` times) while a capture holds no device event: the
+    profiler has been seen on the H100 to return a window of launched
+    kernels with none of them in it."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(CAPTURES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in events):
+            break
+    return events
+
+
 def device_ms_by_kernel(fn: Callable[[], object], iters: int,
                         names: Sequence[str]) -> Dict[str, float]:
     """Device ms per call of ``fn`` in each kernel whose name contains one
     of ``names`` (torch.profiler over ``iters`` calls after one warm-up),
     keyed by the kernel's name up to its argument list."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     out: Dict[str, float] = {}
-    for e in prof.key_averages():
+    for e in _device_events(fn, iters):
         found = [e.key.find(n) for n in names if n in e.key]
         if e.device_type != torch.autograd.DeviceType.CUDA or not found:
             continue

@@ -35,7 +35,9 @@ and K4g in bf16 (tanh) at ``GENERIC_SHAPES``: DIR's tensor-core sources
 K2g at ``ATTENTION_SHAPES`` in both types: DIR's
 ``flash_relpos_generic.cu`` under DIR's own wrappers
 (``kernels/flash_relpos.py`` loaded from DIR, so that builds with other
-entry-point arguments compare).
+entry-point arguments compare), and K5g at ``K5G_SHAPES`` in both types:
+DIR's ``int8_mlp_generic.cu`` under DIR's own ``int8_mlp_generic``
+(``kernels/int8_mlp.py`` loaded from DIR).
 
     python -m painter_tpu_torch.utils.kernel_variants [--iters 50]
         [--against DIR]
@@ -138,6 +140,13 @@ ATTENTION_SHAPES = ((4, 16, (8, 4), (torch.bfloat16, torch.float32)),
                     (16, 64, (80, 40), (torch.bfloat16,)),
                     (16, 64, (90, 45), (torch.bfloat16,)))
 ATTENTION_KERNELS = ("fwd_kernel", "dq_kernel", "dkv_kernel")
+# K5g's --against shapes (M, K, N): tiny_test's MLP, b1-sized M 1 and 16
+# (the JAX kernel test's K 128 / N 256) and a ViT-B-wide SegGPT's b8
+# trunk, where a call is launch-bound and where it is not
+K5G_SHAPES = ((64, 32, 128), (1, 128, 256), (16, 128, 256),
+              (12544, 768, 3072))
+# K5g's device kernels in this checkout and in the scalar design before it
+K5G_KERNELS = ("quant_rows", "tc_gemm", "gemm_kernel")
 
 
 def apply_edits(edits: Edits, dst: str, csrc: str = build.CSRC) -> None:
@@ -281,6 +290,7 @@ def run(iters: int, against: str = "") -> List[dict]:
     if against:
         rows += generic_against(against, max(2, iters // 10))
         rows += attention_against(against, max(2, iters // 10))
+        rows += k5g_against(against, iters)
     return rows
 
 
@@ -321,17 +331,14 @@ def attention_against(against: str, iters: int) -> List[dict]:
     ``against`` (its ``flash_relpos_generic.cu``, launched by its own
     wrappers) in turns with this checkout's (other, this, this, other),
     each held to the plain versions."""
-    import importlib.util
     from painter_tpu_torch.kernels import flash_relpos as fr
     root = os.path.join(against, "painter_tpu_torch", "kernels")
     built = build_variants({"against_attention": ("flash_relpos_generic",
                                                   {})},
                            os.path.join(root, "csrc"))
     use = {"flash_relpos_generic": built["against_attention"]}
-    spec = importlib.util.spec_from_file_location(
-        "against_flash_relpos", os.path.join(root, "flash_relpos.py"))
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
+    other = _load_module(os.path.join(root, "flash_relpos.py"),
+                         "against_flash_relpos")
     rows = []
     for bh, hd, grid, dtypes in ATTENTION_SHAPES:
         for dtype in dtypes:
@@ -366,13 +373,63 @@ def attention_against(against: str, iters: int) -> List[dict]:
     return rows
 
 
+def _load_module(path: str, name: str):
+    """The Python module at ``path`` (another checkout's wrapper)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def k5g_against(against: str, iters: int) -> List[dict]:
+    """K5g at ``K5G_SHAPES`` in bf16 and fp32 built from the checkout at
+    ``against`` (its ``int8_mlp_generic.cu``, launched by its own
+    ``int8_mlp_generic``) in turns with this checkout's (other, this,
+    this, other), each held to the plain version; the launch-bound shapes
+    over 4x ``iters`` calls a turn."""
+    from painter_tpu_torch.kernels import int8_mlp as k5
+    from painter_tpu_torch.ops import quant
+    root = os.path.join(against, "painter_tpu_torch", "kernels")
+    built = build_variants({"against_k5g": ("int8_mlp_generic", {})},
+                           os.path.join(root, "csrc"))
+    use = {"int8_mlp_generic": built["against_k5g"]}
+    other = _load_module(os.path.join(root, "int8_mlp.py"),
+                         "against_int8_mlp")
+    rows = []
+    for m, k, n in K5G_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(630)
+            lins = []
+            for k_in, k_out in ((k, n), (n, k)):
+                lin = torch.nn.Linear(k_in, k_out, device="cuda")
+                with torch.no_grad():
+                    lin.weight.normal_(0.0, 0.02, generator=g)
+                    lin.bias.normal_(0.0, 0.02, generator=g)
+                lins.append(quant.QuantizedLinear.from_linear(lin))
+            x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+            args = (x, lins[0].weight.q, lins[0].weight.scale, lins[0].bias,
+                    lins[1].weight.q, lins[1].weight.scale, lins[1].bias)
+            ref = k5.int8_mlp_reference(*args)
+            what = f"K5g {str(dtype)[6:]} M {m} K {k} N {n}"
+            calls = iters if m * k * n > 1e9 else 4 * iters
+            for name in ("against", "kernel", "kernel", "against"):
+                fn = (other if name == "against" else k5).int8_mlp_generic
+                rows.append(_measure(
+                    what, name, use if name == "against" else {},
+                    functools.partial(fn, *args), ref, calls, K5G_KERNELS))
+            del x, lins, args, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=50)
     parser.add_argument("--against", default="",
-                        help="root of another checkout whose decoder-tail "
-                             "and generic attention kernels are timed in "
-                             "turns with these")
+                        help="root of another checkout whose decoder-tail, "
+                             "generic attention and K5g kernels are timed "
+                             "in turns with these")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)

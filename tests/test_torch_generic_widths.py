@@ -46,7 +46,7 @@ K5_CASES = {"jax_test_bm64": (224, 128, 256, 64, ()),
             "m1": (1, 128, 256, 8, ()),
             "m37_zero_rows": (37, 128, 256, 16, (0, 5, 36))}
 # the kernel's depth step: K5g zero-pads the reduction to a multiple of it
-# (csrc/int8_mlp_generic.cu BKB)
+# (csrc/int8_mlp_generic.cu: k32 wgmma steps)
 K5G_DEPTH = 32
 
 

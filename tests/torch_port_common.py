@@ -4,6 +4,7 @@ One set of weights and inputs, made with numpy from a seed, goes through
 the JAX package and the port; both run on the CPU.
 """
 import functools
+import os
 
 import jax
 import numpy as np
@@ -12,6 +13,17 @@ import torch
 from painter_tpu.models import incontext_vit as jm
 from painter_tpu_torch.models import convert
 from painter_tpu_torch.models import incontext_vit as tm
+
+# Under pytest-xdist each worker shares the host's cores with the others.
+# torch's intra-op pool defaults to one thread per core in every worker,
+# so six workers on eight cores oversubscribe them, and a test of many
+# small ops stalls at each op's barrier on descheduled threads (a model
+# restatement that takes 3.5 s alone took 1170 s under the 6-worker run).
+# Every worker imports this module while it collects the port's tests, so
+# each takes its share of the cores here.
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def jax_params_np(cfg_j, seed=0):
