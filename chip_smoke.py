@@ -500,11 +500,12 @@ def _stock_tail(pix, w1, b1, lns, lnb, w2, b2, approx):
                                       b2.to(dt)).permute(0, 2, 3, 1)
 
 
-def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False):
+def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False,
+              stock_turns=False):
     """K3 and K4 (with ``generic``, K3g and K4g) against their plain
     versions on one input of width ``c``; the rows of numbers of both. In
-    fp32 a profile checks that the 3xTF32 kernels ran, and each is timed
-    in turns with the stock tail."""
+    fp32 a profile checks that the 3xTF32 kernels ran; in fp32, and with
+    ``stock_turns``, each is timed in turns with the stock tail."""
     from painter_tpu_torch.kernels import decoder_head as dh
     from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
     fwd = dh.fused_decoder_tail_generic if generic else dh.fused_decoder_tail
@@ -601,11 +602,12 @@ def tail_case(shape, dtype, approx, seed, iters, c=64, generic=False):
             "max_abs_err": k3_abs if name == "K3" else k4_abs,
             "rel_err": k3_err if name == "K3" else max(k4_errs.values()),
             "ms": event_ms(fn, iters),
-            "device_ms": device_ms(fn, iters, names),
+            "split": device_ms_by_kernel(fn, iters, names),
             "plain_ms": event_ms(plain, max(1, iters // 2)),
             "library_ms": event_ms(lib, iters), "flop": flops,
             "bytes": nbytes, **attention_bound(flops, nbytes, dtype)}
-        if dtype == torch.float32:
+        rows[name]["device_ms"] = sum(rows[name]["split"].values()) or None
+        if dtype == torch.float32 or stock_turns:
             # the kernel and the stock tail (TF32 off) in turns
             rows[name]["turns"] = turns({"kernel": fn, "stock": lib},
                                         {"kernel": iters, "stock": iters})
@@ -3609,7 +3611,7 @@ GENERIC_FWD_MAIN = (16, 64, (128, 64))
 GENERIC_ATTN_KERNELS = {"fwd": ("gtc::fwd_kernel",),
                         "bwd": ("gtc::dq_kernel", "gtc::dkv_kernel")}
 # K3g / K4g at the JAX tests' C = 8 on 16x12 and 12x8, tiny_test's b2
-# (2, 64, 32, 8) (the main-path shape of the scalar route), 40 on a
+# (2, 64, 32, 8) (the main-path shape of the narrow route), 40 on a
 # ragged 37x29 and 128, and past 128 channels: 160 and 256 at tiny_test's
 # pixels (split rows: its 128 units would leave SMs idle in whole rows),
 # 264 there (past 256: split rows at any size), 520 on a ragged 16x40
@@ -3621,20 +3623,31 @@ GENERIC_ATTN_KERNELS = {"fwd": ("gtc::fwd_kernel",),
 # the pixels to CD > C: 13 on 16x12 and 100 on 37x29 (split rows), 100 on
 # 140x70 (whole rows) and 517 on 8x40 (the N tiles and the row kernels).
 # C >= 9 runs the tensor-core kernels (csrc/decoder_tail_tc_*.cu; fp32 in
-# 3xTF32), C = 8 the scalar ones (csrc/decoder_tail_generic.cu). In fp32
-# whole rows stop at 128 channels and split rows at 256: 160 and 256 run
-# split rows, 264, 517 and 520 the N tiles and the row kernels.
+# 3xTF32), C <= 8 the narrow ones (csrc/decoder_tail_generic.cu): also at
+# C 1, 3 and 5 on ragged grids (the pixels read unpadded, tiles ragged at
+# both edges), at (1, 896, 448, 8), the shape the 8-channel ViT-L update
+# gives it (b1 x accum 2: 16-row tiles, at most one round of persistent
+# CTAs), and at (2, 896, 448, 8), its b2 (several tiles per persistent
+# CTA). In fp32 whole rows stop at 128 channels and split rows at 256: 160
+# and 256 run split rows, 264, 517 and 520 the N tiles and the row kernels.
 GENERIC_TAIL_SHAPES = (((2, 16, 12), 8), ((2, 12, 8), 8), ((2, 64, 32), 8),
+                       ((2, 37, 29), 1), ((1, 23, 45), 3), ((2, 19, 70), 5),
+                       ((2, 896, 448), 8),
                        ((2, 37, 29), 40), ((1, 16, 16), 128),
                        ((2, 64, 32), 160), ((2, 64, 32), 256),
                        ((2, 64, 32), 264), ((1, 16, 40), 520),
                        ((1, 267, 60), 96), ((2, 16, 12), 13),
                        ((2, 37, 29), 100), ((1, 140, 70), 100),
                        ((1, 8, 40), 517), ((1, 896, 448), 256),
-                       ((1, 896, 448), 128))
+                       ((1, 896, 448), 128), ((1, 896, 448), 8))
 GENERIC_TAIL_BIG = ((1, 896, 448), 256)
-GENERIC_TAIL_BIG_SHAPES = (GENERIC_TAIL_BIG, ((1, 896, 448), 128))
+GENERIC_TAIL_BIG_SHAPES = (GENERIC_TAIL_BIG, ((1, 896, 448), 128),
+                           ((1, 896, 448), 8), ((2, 896, 448), 8))
 GENERIC_TAIL_MAIN = ((2, 64, 32), 8)
+# the narrow route timed in turns with the stock tail, both types, with
+# its device ms per launch by kernel: tiny_test's decoder and the
+# 8-channel one at a full 896x448 pixel count
+NARROW_TIMED = (GENERIC_TAIL_MAIN, ((2, 896, 448), 8))
 TINY = "tiny_test"
 # tiny_test with 2x2 windows in half its blocks: key grids of width 2
 TINY_WINDOWED = dict(window_block_indexes=(0, 3, 4))
@@ -3674,7 +3687,7 @@ def _zero_counts():
 
 
 def _read_tc_counts():
-    """(K3g, K4g) launches on the tensor-core route (the scalar route's are
+    """(K3g, K4g) launches on the tensor-core route (the narrow route's are
     in :func:`_read_counts`)."""
     return tuple(fn.launches for fn in _tc_counts())
 
@@ -3840,9 +3853,11 @@ def phase_generic_tail(label):
     """K3g / K4g against their plain versions at GENERIC_TAIL_SHAPES, in
     bf16 and fp32, both GELU flavours (the tanh one at
     GENERIC_TAIL_BIG_SHAPES); each twice, bitwise; each on the route
-    ``generic_tail_route`` names (its launches counted). Then K3g / K4g's
-    device time per launch at GENERIC_TAIL_BIG in bf16 (the packing, the
-    kernels and the wrapper's partial sums)."""
+    ``generic_tail_route`` names (its launches counted); at NARROW_TIMED
+    in turns with the stock tail, with the device ms per launch of each
+    narrow kernel. Then K3g / K4g's device time per launch at
+    GENERIC_TAIL_BIG in bf16 (the packing, the kernels and the wrapper's
+    partial sums)."""
     from painter_tpu_torch.kernels import decoder_head as dh
     from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3854,17 +3869,23 @@ def phase_generic_tail(label):
         big = (shape, c) in GENERIC_TAIL_BIG_SHAPES
         for dtype in FP32:
             route = dh.generic_tail_route(c, dtype)
+            timed_narrow = (shape, c) in NARROW_TIMED
             for approx in (True,) if big else (True, False):
                 _zero_counts()
+                iters = (20 if (shape, c) == GENERIC_TAIL_MAIN else
+                         (10 if dtype == torch.bfloat16 else 2) if big
+                         else 5)
                 r = tail_case(shape, dtype, approx, seed=600 + i,
-                              iters=(10 if dtype == torch.bfloat16 else 2)
-                              if big else 5, c=c, generic=True)
-                scalar, tc = _read_counts()[1][2:4], _read_tc_counts()
-                check(min(tc if route == "tc" else scalar) > 0
-                      and max(scalar if route == "tc" else tc) == 0,
-                      f"C={c} {dtype}: route {route}, launches scalar "
-                      f"{scalar} tensor-core {tc}")
+                              iters=iters, c=c, generic=True,
+                              stock_turns=timed_narrow and approx)
+                narrow, tc = _read_counts()[1][2:4], _read_tc_counts()
+                check(min(tc if route == "tc" else narrow) > 0
+                      and max(narrow if route == "tc" else tc) == 0,
+                      f"C={c} {dtype}: route {route}, launches narrow "
+                      f"{narrow} tensor-core {tc}")
                 r["K3"]["route"] = r["K4"]["route"] = route
+                if timed_narrow and approx:
+                    _narrow_line(shape, c, dtype, r, label)
                 rows.append(r)
                 k4e = " ".join(f"{n} {e:.1e}"
                                for n, e in r["K4"]["rel_errs"].items())
@@ -3929,6 +3950,24 @@ def phase_generic_tail(label):
         check(shift > K3_TOL[torch.float32],
               f"TF32 moved the plain tail only {shift} at {shape} C={c}")
     return rows
+
+
+def _narrow_line(shape, c, dtype, r, label):
+    """K3g / K4g's times in turns with the stock tail and their device ms
+    per launch of each narrow kernel (tanh), from tail_case's rows ``r``;
+    checks that only narrow kernels ran."""
+    for name in ("K3", "K4"):
+        x = r[name]
+        check(x["split"] and all(k.startswith("narrow::")
+                                 for k in x["split"]),
+              f"narrow {name}g {dtype} {shape}: kernels {sorted(x['split'])}")
+        print(f"# {name}g {dtype} {shape} C={c} tanh (narrow route), in "
+              f"turns with the stock tail (TF32 off): kernel "
+              f"{_ms_list(x['turns']['kernel'])} stock "
+              f"{_ms_list(x['turns']['stock'])} ms; device ms per launch "
+              + "; ".join(f"{k} {v:.4f}" for k, v in x["split"].items())
+              + f" (sum {x['device_ms']:.4f}); bound {x['bound_ms']:.6f} ms "
+              f"({_bound_note(x, dtype)}) [{label}]")
 
 
 def _tail_params(c, g):
@@ -4256,13 +4295,33 @@ WIDE_DECODER = 160
 # Painter ViT-L 896x448 with a 256-channel decoder (the widest whole-rows
 # width of the tensor-core route)
 WIDE_VITL_DECODER = 256
+# Painter ViT-L 896x448 with an 8-channel decoder: the narrow route at a
+# full 896x448 pixel count
+NARROW_VITL_DECODER = 8
+
+
+def _vitl_decoder_model(width, seed):
+    """(cfg, seeded bf16 model in train mode) of Painter ViT-L 896x448 with
+    ``decoder_embed_dim`` ``width`` (the preset widened by a
+    ``functools.partial`` for the call, restored after it)."""
+    from painter_tpu_torch import configs
+    real = configs.PRESETS[PAINTER]
+    configs.PRESETS[PAINTER] = functools.partial(real,
+                                                 decoder_embed_dim=width)
+    try:
+        cfg = configs.get_config(PAINTER, dtype="bfloat16")
+        check(cfg.decoder_embed_dim == width,
+              f"decoder width {cfg.decoder_embed_dim}")
+        return cfg, _seeded_model(cfg, seed).train()
+    finally:
+        configs.PRESETS[PAINTER] = real
 
 
 def phase_tiny_wide_decoder(label):
     """tiny_test with ``decoder_embed_dim`` 160 trains through
     ``train.main --model tiny_test --decoder_impl fused`` (the preset
     widened for the call): K3g / K4g on the tensor-core route once per
-    micro-batch, no ViT-L kernel and no scalar K3g / K4g; each loss finite,
+    micro-batch, no ViT-L kernel and no narrow K3g / K4g; each loss finite,
     each update changes the parameters. Returns (K3g, K4g) launches."""
     import functools
     from painter_tpu_torch import configs
@@ -4322,12 +4381,9 @@ def phase_vitl_wide_decoder(label):
         print(f"# ViT-L 896x448 decoder {WIDE_VITL_DECODER} training drive: "
               f"{time.perf_counter() - t0:.1f} s with model build, data "
               f"workers and validation")
-        cfg = configs.get_config(PAINTER, dtype="bfloat16")
-        check(cfg.decoder_embed_dim == WIDE_VITL_DECODER,
-              f"decoder width {cfg.decoder_embed_dim}")
-        model = _seeded_model(cfg, 41).train()
     finally:
         configs.PRESETS[PAINTER] = real
+    cfg, model = _vitl_decoder_model(WIDE_VITL_DECODER, 41)
     opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
         warmup_epochs=0.0, steps_per_epoch=10))
     step = step_lib.make_train_step(cfg, opt, accum_iter=accum,
@@ -4349,6 +4405,73 @@ def phase_vitl_wide_decoder(label):
     del model, opt
     torch.cuda.empty_cache()
     return tc, ms, tail_ms
+
+
+def phase_vitl_narrow_decoder(label):
+    """Painter ViT-L 896x448 with ``decoder_embed_dim`` 8 (K3g / K4g on the
+    narrow route at (1, 896, 448, 8) once per micro-batch), bf16, b1 x
+    accum 2, save_kernel, on a device-resident batch: one update with the
+    fused tail and one with ``decoder_impl="auto"`` (the stock tail), each
+    loss finite and the launches checked -- fused: K1 / K2 on every block,
+    narrow K3g / K4g once per micro-batch, no K3 / K4 / K1g / K2g / K5 /
+    K5g and no tensor-core tail; auto: no K3g / K4g. Then the ms per update,
+    median of 3, in turns (fused, auto, auto, fused) and K3g / K4g's device
+    time in one profiled fused update. ``train.main`` drives the route with
+    tiny_test (phase_tiny_train). Returns ((K3g, K4g) launches of the
+    checked fused update, {impl: [ms per round]}, K3g / K4g device ms)."""
+    from painter_tpu_torch.kernels import decoder_head as dh
+    from painter_tpu_torch.train import optim
+    from painter_tpu_torch.train import step as step_lib
+    from painter_tpu_torch.utils.cuda_timing import device_ms_by_kernel
+    accum = 2
+    check(((1, 896, 448), NARROW_VITL_DECODER) in GENERIC_TAIL_SHAPES,
+          "phase_generic_tail does not hold the narrow kernels at this "
+          "update's shape")
+    cfg, model = _vitl_decoder_model(NARROW_VITL_DECODER, 51)
+    check(dh.generic_tail_route(NARROW_VITL_DECODER, torch.bfloat16)
+          == "narrow", "the 8-channel decoder is not on the narrow route")
+    opt = optim.LayerDecayAdamW(model, cfg, optim.OptimConfig(
+        warmup_epochs=0.0, steps_per_epoch=10))
+    steps = {impl: step_lib.make_train_step(cfg, opt, accum_iter=accum,
+                                            decoder_impl=impl)
+             for impl in ("fused", "auto")}
+    batch = _train_batch(cfg, 1, seed=52, accum=accum)
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    depth = cfg.depth
+    want = {"fused": ((depth * accum, depth * accum, 0, 0, 0),
+                      (0, 0, accum, accum, 0)),
+            "auto": ((depth * accum, depth * accum, 0, 0, 0), (0,) * 5)}
+    for impl, step in steps.items():
+        _zero_counts()
+        loss = float(step(model, batch, gen)["loss"])
+        counts, tc = _read_counts(), _read_tc_counts()
+        print(f"# ViT-L 896x448 decoder {NARROW_VITL_DECODER} update "
+              f"({impl} tail): loss {loss:.5f}, launches K1-K5 {counts[0]}, "
+              f"K1g-K5g {counts[1]}, tensor-core K3g / K4g {tc} [{label}]")
+        check(np.isfinite(loss) and counts == want[impl] and tc == (0, 0),
+              f"ViT-L decoder {NARROW_VITL_DECODER} {impl} update launched "
+              f"{counts}, tensor-core {tc}, loss {loss}")
+    times = {"fused": [], "auto": []}
+    for impl in ("fused", "auto", "auto", "fused"):
+        times[impl].append(1e3 * statistics.median(
+            _timed_updates(steps[impl], model, batch, gen, 3)))
+    by_kernel = device_ms_by_kernel(lambda: steps["fused"](model, batch, gen),
+                                    1, dh.NARROW_KERNEL_NAMES)
+    tail_ms = sum(by_kernel.values())
+    check(by_kernel and all(k.startswith("narrow::") for k in by_kernel),
+          f"the profiled fused update ran {sorted(by_kernel)}")
+    ms = statistics.median(times["fused"])
+    print(f"# ViT-L 896x448 decoder {NARROW_VITL_DECODER} update (b1 x accum "
+          f"{accum}, bf16, save_kernel), ms per update (median of 3) in "
+          f"turns fused, auto, auto, fused: fused "
+          f"{_ms_list(times['fused'])}, auto {_ms_list(times['auto'])}; "
+          f"K3g / K4g device time in one fused update {tail_ms:.4f} ms "
+          f"({100 * tail_ms / ms:.3f}% of the update; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
+          + f"; {accum} calls each) [{label}]")
+    del model, opt, steps
+    torch.cuda.empty_cache()
+    return want["fused"][1][2:4], times, tail_ms
 
 
 # SegGPT ViT-L fp32 tanh, relative Frobenius. int8-fused vs int8: the two
@@ -4958,6 +5081,8 @@ def main():
                                phase_tiny_wide_decoder, label)
     (vw_k3g, vw_k4g), _, _ = timed("ViT-L 896x448 wide decoder training",
                                    phase_vitl_wide_decoder, label)
+    (vn_k3g, vn_k4g), _, _ = timed("ViT-L 896x448 narrow decoder updates",
+                                   phase_vitl_narrow_decoder, label)
     fp32_k5, _, fp32_serve_k1 = timed("SegGPT ViT-L fp32 int8 serving",
                                       phase_int8_fp32_serving, label)
     vitb_k5g, _ = timed("SegGPT ViT-B-wide int8 serving",
@@ -5005,7 +5130,9 @@ def main():
           f"training (K1g, K2g, K3g, K4g) {tiny_gen}, decoder "
           f"{WIDE_DECODER} training (tensor-core K3g, K4g) ({wide_k3g}, "
           f"{wide_k4g}); ViT-L 896x448 decoder {WIDE_VITL_DECODER} training "
-          f"(tensor-core K3g, K4g) ({vw_k3g}, {vw_k4g}); "
+          f"(tensor-core K3g, K4g) ({vw_k3g}, {vw_k4g}); ViT-L 896x448 "
+          f"decoder {NARROW_VITL_DECODER} fused update (narrow K3g, K4g) "
+          f"({vn_k3g}, {vn_k4g}); "
           f"K5g launches: "
           f"tiny_test int8-fused serving {tiny_k5g}, CLI tiny_test "
           f"{cli_tiny_k5g}, SegGPT ViT-B-wide int8-fused serving (bf16 and "
@@ -5080,10 +5207,12 @@ def main():
                       "flash_relpos_generic"),
         _kernel_entry("decoder_tail_generic_fwd",
                       "painter_tpu/kernels/decoder_head.py:180",
-                      tiny_gen[2], gen_tail["K3"], "decoder_tail_generic"),
+                      tiny_gen[2] + vn_k3g, gen_tail["K3"],
+                      "decoder_tail_generic"),
         _kernel_entry("decoder_tail_generic_bwd",
                       "painter_tpu/kernels/decoder_head.py:304",
-                      tiny_gen[3], gen_tail["K4"], "decoder_tail_generic"),
+                      tiny_gen[3] + vn_k4g, gen_tail["K4"],
+                      "decoder_tail_generic"),
         _kernel_entry("decoder_tail_tc_fwd",
                       "painter_tpu/kernels/decoder_head.py:180",
                       wide_k3g + vw_k3g, tc_tail["K3"]),

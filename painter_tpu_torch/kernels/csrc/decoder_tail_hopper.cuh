@@ -75,13 +75,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
-// tanh.approx.f32: relative error about 2^-11, used where the result only
-// reaches a bf16 output after a rounding to bf16 (2^-9)
-__device__ __forceinline__ float tanh_approx(float x) {
-  float th;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(x));
-  return th;
-}
+using dtail::tanh_approx;
 
 // An epilogue E supplies:
 //   E::kRotated   taps (dy, dx) read input row y - dy + 1, box x - dx + 1 and

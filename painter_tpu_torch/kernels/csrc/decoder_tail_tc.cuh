@@ -58,6 +58,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "decoder_tail_common.cuh"
 #include "flash_relpos_tf32.cuh"
 #include "hopper.cuh"
 
@@ -76,7 +77,7 @@ constexpr int SMEM_MAX = 232448;
 constexpr int BAR_BYTES = 256;       // ring barriers (at most 16 stages)
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_ROW_C = 512;       // two warpgroups of m64n256
-constexpr float LN_EPS = 1e-6f;
+constexpr float LN_EPS = dtail::LN_EPS;
 
 // per type: channels per 128-byte K chunk, W1 parts (fp32: big and small
 // tf32), the widest warpgroup N, and the widest C of whole rows and of
@@ -198,50 +199,16 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// tanh.approx.f32: relative error about 2^-11, used where the result only
-// reaches a bf16 output after a rounding to bf16 (2^-9); the fp32 route
-// (EXACT) takes tanhf, as decoder_tail_common.cuh's expressions do
-__device__ __forceinline__ float tanh_approx(float x) {
-  float th;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(x));
-  return th;
-}
-
-template <bool EXACT>
-__device__ __forceinline__ float tanh_of(float x) {
-  return EXACT ? tanhf(x) : tanh_approx(x);
-}
-
 // the GELU output as the contract rounds it: to bf16 in bf16, not in fp32
 __device__ __forceinline__ float round_as(float x, const bf16*) {
   return bf16_round(x);
 }
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 
-// gelu(x) (exact or tanh) and its derivative from one erf or tanh
-template <bool APPROX, bool EXACT = false>
-__device__ __forceinline__ void gelu_and_grad(float x, float& g, float& dg) {
-  if (APPROX) {
-    const float c = 0.7978845608028654f;
-    const float a = 0.044715f;
-    const float th = tanh_of<EXACT>(c * (x + a * (x * x * x)));
-    g = 0.5f * x * (1.0f + th);
-    dg = 0.5f * (1.0f + th)
-        + 0.5f * x * (1.0f - th * th) * c * (1.0f + 3.0f * a * x * x);
-    return;
-  }
-  const float cdf = 0.5f * (1.0f + erff(x * 0.7071067811865476f));
-  g = x * cdf;
-  dg = cdf + x * (expf(-0.5f * x * x) * 0.3989422804014327f);
-}
-
-template <bool APPROX, bool EXACT = false>
-__device__ __forceinline__ float gelu(float x) {
-  if (APPROX)
-    return 0.5f * x * (1.0f + tanh_of<EXACT>(0.7978845608028654f *
-                                             (x + 0.044715f * (x * x * x))));
-  return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
-}
+// gelu and its derivative as the other tails take them (tanhf in fp32,
+// tanh.approx.f32 in bf16, whose result is rounded to bf16 next)
+using dtail::gelu;
+using dtail::gelu_and_grad;
 
 // v[h][k] += the other warpgroup's v[h][k] for this thread's rows row0 and
 // row0 + 8 (split mode): written to xch[buf] by lane tq 0, read after the

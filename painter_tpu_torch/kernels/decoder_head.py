@@ -6,9 +6,10 @@ Hand-written CUDA kernels replace the TPU kernels of
 (``_fwd_impl``) and ``csrc/decoder_tail_bwd.cu`` (``_bwd_impl``) at the
 presets' C = 64; ``csrc/decoder_tail_tc_fwd.cu`` / ``decoder_tail_tc_bwd.cu``
 (a tensor-core implicit GEMM: bf16, or 3xTF32 in fp32) at every other C >= 9
-and, in fp32, at C = 64 too; ``csrc/decoder_tail_generic.cu`` (scalar) at
-C <= 8. Their headers state the contracts, what bounds them on an H100 and
-what their designs do about that. The TPU kernel's layout devices
+and, in fp32, at C = 64 too; ``csrc/decoder_tail_generic.cu``
+(``mma.sync`` with the taps packed into K, bf16 or 3xTF32) at C <= 8.
+Their headers state the contracts, what bounds them on an H100 and what
+their designs do about that. The TPU kernel's layout devices
 (128-lane channel padding, the row-block choice, the dx/dy-packed
 contraction) are not carried over.
 
@@ -43,19 +44,22 @@ route by shape and type: ``"tc"`` (C >= 9 in bf16 and fp32: the tensor-core
 implicit GEMM of ``csrc/decoder_tail_tc_fwd.cu`` / ``decoder_tail_tc_bwd.cu``,
 the pixels read unpadded where C % 8 == 0, the parameters packed by one
 launch, in fp32 with W1 split into big and small tf32 parts; past 512
-channels in bf16, 256 in fp32, u in an fp32 scratch) or ``"scalar"``
-(``csrc/decoder_tail_generic.cu`` at C <= 8, zero-padded to 8 channels);
-:func:`generic_channels` gives the padded width. LayerNorm runs over the
-real C. Each route counts its own launches: ``fused_decoder_tail.launches``
-/ ``fused_decoder_tail_bwd.launches`` the C = 64 kernels (both types),
+channels in bf16, 256 in fp32, u in an fp32 scratch) or ``"narrow"``
+(``csrc/decoder_tail_generic.cu`` at C <= 8 in both types: the unpadded
+pixels and the parameters in their torch layouts, padded to 8 channels in
+shared memory; tiles by :func:`narrow_tiling`); :func:`generic_channels`
+gives the padded width. LayerNorm runs over the real C. Each route counts
+its own launches: ``fused_decoder_tail.launches`` /
+``fused_decoder_tail_bwd.launches`` the C = 64 kernels (both types),
 ``fused_decoder_tail_generic.launches`` /
-``fused_decoder_tail_bwd_generic.launches`` the generic ones on the scalar
+``fused_decoder_tail_bwd_generic.launches`` the generic ones on the narrow
 route, ``fused_decoder_tail_tc.launches`` /
 ``fused_decoder_tail_bwd_tc.launches`` on the tensor-core route.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -65,17 +69,24 @@ from painter_tpu_torch.kernels import build
 
 LN_EPS = 1e-6
 CHANNELS = 64  # the ViT-L kernels are built for the presets' decoder width
-# the width the scalar K3g / K4g are built for (C <= 8, zero-padded to it)
-SCALAR_CHANNELS = 8
 # widths from TC_MIN_CHANNELS on go to the tensor-core route
 # (csrc/decoder_tail_tc_*.cu; bf16 C = 64 goes to K3 / K4 first); past
 # TC_ROW_CHANNELS (bf16) / TC_ROW_CHANNELS_F32 its u goes through an fp32
-# scratch. Below it the scalar kernels stay: at tiny_test's (2, 64, 32, 8)
-# in bf16 they took 0.0125 / 0.0334 ms of device time (K3g / K4g, tanh,
-# with the packing launch) where the tensor-core kernels took 0.0190 /
-# 0.0420, the event time per call being the wrapper's host work on both
-# (H100 80GB HBM3, 700 W, in turns; PERF.md section 6)
+# scratch. Below it the narrow route (csrc/decoder_tail_generic.cu): the
+# tensor-core route's 64-channel K chunks and N >= 64 warpgroup tiles
+# multiply mostly zeros there (at tiny_test's (2, 64, 32, 8) they took
+# 1.3-1.6x the device time of a one-thread-per-pixel FMA design; H100 80GB
+# HBM3, 700 W; PERF.md section 6)
 TC_MIN_CHANNELS = 9
+# the narrow route (C <= 8): the width the pixels are padded to in shared
+# memory; output columns of a tile (TW of the source); the tile's rows, the
+# most of these that gives two tiles per SM (narrow_tiling); the values of
+# a row of K4g's partial sums (NPART). The persistent CTAs an SM holds come
+# from the kernels themselves (_narrow_ctas_per_sm)
+NARROW_CHANNELS = 8
+NARROW_TILE_W = 32
+NARROW_TILE_ROWS = (16, 8, 4, 2)
+NARROW_PARTIALS = 9 * NARROW_CHANNELS ** 2 + 6 * NARROW_CHANNELS + 3
 TC_ROW_CHANNELS = 512
 TC_ROW_CHANNELS_F32 = 256  # fp32 warpgroups stop at N = 128
 TC_STEP = 8  # the tensor-core route's channel padding (16-byte rows)
@@ -84,14 +95,15 @@ TC_TILE = 64  # pixels per unit: du^T's image rows are padded to it (fp32)
 # kernels; fp32: the tensor-core route's)
 KERNEL_NAMES = ("strip_kernel", "dw1_kernel", "tc::conv_kernel<",
                 "tc::dw1_tf32_kernel", "tc::pack_kernel", "tc::row_")
-# K3g's and K4g's device kernels (templates), as the profiler names them
-GENERIC_KERNEL_NAMES = ("fwd_kernel<", "du_kernel<", "dpix_kernel<",
-                        "dw1_kernel<", "conv_kernel<", "pack_kernel",
-                        "dw1_tf32_kernel")
-# the tensor-core route's alone (K1's forward kernel is a fwd_kernel< too)
+# the narrow route's device kernels, as the profiler names them
+NARROW_KERNEL_NAMES = ("narrow::fwd_kernel<", "narrow::bwd_kernel<",
+                       "narrow::reduce_kernel")
+# the tensor-core route's (K1's forward kernel is a fwd_kernel< too)
 TC_KERNEL_NAMES = ("tc::pack_kernel", "tc::conv_kernel<", "tc::dw1_kernel<",
                    "tc::dw1_tf32_kernel", "tc::row_fwd_kernel<",
                    "tc::row_bwd_kernel<")
+# K3g's and K4g's device kernels on either route
+GENERIC_KERNEL_NAMES = NARROW_KERNEL_NAMES + TC_KERNEL_NAMES
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -222,19 +234,45 @@ def decoder_route(c: int, dtype: torch.dtype) -> str:
 def generic_tail_route(c: int, dtype: torch.dtype) -> str:
     """K3g / K4g's route for a width :func:`decoder_route` sends to them,
     by shape and type alone: ``"tc"`` (C >= ``TC_MIN_CHANNELS`` in bf16 and
-    fp32, the tensor-core kernels) or ``"scalar"`` (C <= 8:
+    fp32, the tensor-core kernels) or ``"narrow"`` (C <= 8:
     ``csrc/decoder_tail_generic.cu``). Raises as decoder_route."""
     decoder_route(c, dtype)
-    return "tc" if c >= TC_MIN_CHANNELS else "scalar"
+    return "tc" if c >= TC_MIN_CHANNELS else "narrow"
 
 
 def generic_channels(c: int, dtype: torch.dtype = torch.float32) -> int:
     """The width K3g / K4g run ``c`` channels at: on the tensor-core route
-    ``c`` rounded up to a multiple of ``TC_STEP``; on the scalar route
-    ``SCALAR_CHANNELS``."""
+    ``c`` rounded up to a multiple of ``TC_STEP``; on the narrow route
+    ``NARROW_CHANNELS`` (in shared memory)."""
     if generic_tail_route(c, dtype) == "tc":
         return -(-c // TC_STEP) * TC_STEP
-    return SCALAR_CHANNELS
+    return NARROW_CHANNELS
+
+
+def narrow_tiling(b: int, h: int, w: int, sms: int):
+    """(th, tiles) of the narrow route at (b, h, w) on ``sms`` SMs: tiles of
+    ``NARROW_TILE_W`` columns by th rows, th the most of
+    ``NARROW_TILE_ROWS`` that gives at least two tiles per SM (else the
+    fewest rows), and the number of tiles."""
+    cols = -(-w // NARROW_TILE_W)
+    for th in NARROW_TILE_ROWS:
+        tiles = b * cols * -(-h // th)
+        if tiles >= 2 * sms:
+            break
+    return th, tiles
+
+
+def narrow_grid(tiles: int, per_sm: int, sms: int) -> int:
+    """The narrow route's persistent CTAs: the fewest that take ``tiles``
+    in as few rounds as ``per_sm`` CTAs on each of ``sms`` SMs would; CTA
+    i takes tiles i, i + grid, ..."""
+    rounds = -(-tiles // (per_sm * sms))
+    return -(-tiles // rounds)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_pix(pix, *more) -> str:
@@ -259,23 +297,22 @@ def _pad_channels(x: torch.Tensor, n: int, dims) -> torch.Tensor:
     return F.pad(x, pad)
 
 
-def _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, cp=None):
-    """Kernel layout, all in pix.dtype, zero-padded to ``cp`` channels
-    (default C): W1 (3, 3, C_in, C_out) = (tap, c, o), b1, LN scale, LN
-    bias (C,), W2 (C, 3)."""
-    dt = pix.dtype
-    c = pix.shape[-1]
-    cp = cp or c
+def _check_weights(c, conv1_w, conv2_w):
     if tuple(conv1_w.shape) != (c, c, 3, 3) or \
             tuple(conv2_w.shape) != (3, c, 1, 1):
         raise ValueError(f"conv weights {tuple(conv1_w.shape)} / "
                          f"{tuple(conv2_w.shape)} do not fit C={c}")
-    w1 = _pad_channels(conv1_w.to(dt), cp, (0, 1)).permute(
-        2, 3, 1, 0).contiguous()
-    w2 = _pad_channels(conv2_w.to(dt).reshape(3, c).t(), cp,
-                       (0,)).contiguous()
-    rows = [_pad_channels(v.to(dt).reshape(-1), cp, (0,)).contiguous()
-            for v in (conv1_b, ln_w, ln_b)]
+
+
+def _packed_params(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w):
+    """The C = 64 kernels' layout, all in pix.dtype: W1 (3, 3, C_in, C_out)
+    = (tap, c, o), b1, LN scale, LN bias (C,), W2 (C, 3)."""
+    dt = pix.dtype
+    c = pix.shape[-1]
+    _check_weights(c, conv1_w, conv2_w)
+    w1 = conv1_w.to(dt).permute(2, 3, 1, 0).contiguous()
+    w2 = conv2_w.to(dt).reshape(3, c).t().contiguous()
+    rows = [v.to(dt).reshape(-1).contiguous() for v in (conv1_b, ln_w, ln_b)]
     return (w1, *rows, w2)
 
 
@@ -402,22 +439,44 @@ fused_decoder_tail_bwd.launches = 0
 
 
 @build.lookup
-def _generic_tiles_fn():
-    fn = build.library("decoder_tail_generic").decoder_tail_generic_tiles
-    fn.argtypes = [ctypes.c_int] * 3
+def _generic_fn(direction: str, dtype: torch.dtype):
+    fn = getattr(build.library("decoder_tail_generic"),
+                 f"decoder_tail_generic_{direction}_{_DTYPES[dtype]}")
+    n_ptrs, n_ints = (8, 7) if direction == "fwd" else (10, 7)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @build.lookup
-def _generic_fn(direction: str, dtype: torch.dtype):
+def _narrow_ctas_per_sm(direction: str, dtype: torch.dtype, th: int,
+                        approximate: bool, index: int) -> int:
+    """CTAs of the narrow ``direction`` ("fwd" or "bwd") kernel at ``th``
+    rows a tile that card ``index``'s SMs hold at once, by the kernel's
+    registers and shared memory (the CUDA occupancy query)."""
     fn = getattr(build.library("decoder_tail_generic"),
-                 f"decoder_tail_generic_{direction}_{_DTYPES[dtype]}")
-    n_ptrs = 8 if direction == "fwd" else 12
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+                 f"decoder_tail_generic_ctas_per_sm_{_DTYPES[dtype]}")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(int(direction == "bwd"), th, int(approximate),
+                ctypes.byref(n))
+    _raise_if(rc, "decoder_tail_generic")
+    return n.value
+
+
+def _narrow_launch_grid(pix, direction: str, approximate: bool):
+    """(th, persistent CTAs) of the narrow ``direction`` kernel on ``pix``:
+    :func:`narrow_tiling`'s tiles over as few rounds as the SMs hold."""
+    b, h, w, _ = pix.shape
+    index = pix.device.index
+    sms = _sm_count(index)
+    th, tiles = narrow_tiling(b, h, w, sms)
+    per_sm = _narrow_ctas_per_sm(direction, pix.dtype, th,
+                                 bool(approximate), index)
+    return th, narrow_grid(tiles, per_sm, sms)
 
 
 @build.lookup
@@ -495,10 +554,7 @@ def _pack(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cd):
     bias at 18 p cd^2 + (0, 1, 2) cd, W2 (c, k) at 18 p cd^2 + 3 cd, b2
     after it."""
     c = pix.shape[-1]
-    if tuple(conv1_w.shape) != (c, c, 3, 3) or \
-            tuple(conv2_w.shape) != (3, c, 1, 1):
-        raise ValueError(f"conv weights {tuple(conv1_w.shape)} / "
-                         f"{tuple(conv2_w.shape)} do not fit C={c}")
+    _check_weights(c, conv1_w, conv2_w)
     params = [v.float().contiguous() for v in (
         conv1_w, conv1_b, ln_w, ln_b, conv2_w)]
     b2 = None if conv2_b is None else conv2_b.float().contiguous()
@@ -526,16 +582,14 @@ def _tc_u_scratch(pix, c):
     return torch.empty(pix.shape, dtype=torch.float32, device=pix.device)
 
 
-def _packed_views(packed, cd):
-    """The scalar kernels' bf16 parameters at cp = cd inside the packed
-    buffer: W1 (tap, c, o), W1 (tap, o, c), b1, LN scale, LN bias, W2."""
-    p2 = cd * cd * 9
-    rows = 18 * cd * cd
-    return (packed[p2:2 * p2], packed[:p2], packed[rows:rows + cd],
-            packed[rows + cd:rows + 2 * cd],
-            packed[rows + 2 * cd:rows + 3 * cd],
-            packed[rows + 3 * cd:rows + 6 * cd],
-            packed[rows + 6 * cd:rows + 6 * cd + 3])
+def _narrow_params(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                   conv2_b=None):
+    """The narrow route's parameters: fp32 and contiguous in their torch
+    layouts (the kernels cast and pad them), each checked against C."""
+    _check_weights(pix.shape[-1], conv1_w, conv2_w)
+    params = (conv1_w, conv1_b, ln_w, ln_b, conv2_w) + (
+        () if conv2_b is None else (conv2_b,))
+    return [v.float().contiguous() for v in params]
 
 
 def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
@@ -546,8 +600,8 @@ def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
     C = 64 kernel does not take here. A CPU tensor runs the plain
     version; a CUDA tensor goes by :func:`generic_tail_route`: to
     :func:`fused_decoder_tail_tc` (which counts its own launches), or at
-    C <= 8 it launches the scalar kernel (channels zero-padded to
-    :func:`generic_channels`; bf16 after the packing launch) or raises.
+    C <= 8 it launches the narrow kernel (one launch, the unpadded pixels,
+    the parameters as they are) or raises.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_reference(pix, conv1_w, conv1_b, ln_w,
@@ -558,23 +612,15 @@ def fused_decoder_tail_generic(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
         return fused_decoder_tail_tc(pix, conv1_w, conv1_b, ln_w, ln_b,
                                      conv2_w, conv2_b, approximate)
     b, h, w, c = pix.shape
-    cp = generic_channels(c, pix.dtype)
-    if pix.dtype == torch.bfloat16:
-        # bf16: the packed buffer at cd = 8 holds the scalar kernels'
-        # layouts
-        w1, _, b1, lns, lnb, w2, b2 = _packed_views(_pack(
-            pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, conv2_b, cp), cp)
-    else:
-        w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w,
-                                              ln_b, conv2_w, cp)
-        b2 = conv2_b.to(pix.dtype).reshape(-1).contiguous()
-    pix = (pix if cp == c else _pad_channels(pix, cp, (3,))).contiguous()
+    params = _narrow_params(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w,
+                            conv2_b)
+    pix = pix.contiguous()
     out = torch.empty((b, h, w, 3), dtype=pix.dtype, device=pix.device)
+    th, grid = _narrow_launch_grid(pix, "fwd", approximate)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
     rc = _generic_fn("fwd", pix.dtype)(
-        pix.data_ptr(), w1.data_ptr(), b1.data_ptr(), lns.data_ptr(),
-        lnb.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h,
-        w, cp, c, int(bool(approximate)), stream)
+        pix.data_ptr(), *(v.data_ptr() for v in params), out.data_ptr(), b,
+        h, w, c, th, grid, int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_generic")
     fused_decoder_tail_generic.launches += 1
     return out
@@ -641,10 +687,11 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
 
     A CPU tensor runs the plain version; a CUDA tensor goes by
     :func:`generic_tail_route`: to :func:`fused_decoder_tail_bwd_tc`, or
-    at C <= 8 it launches the scalar kernels (counted as one call) or
-    raises: two kernels (du, then dpix with dW1); bf16 after the packing
-    launch. One ``torch.sum`` over each fp32 per-CTA partial finishes the
-    parameter gradients.
+    at C <= 8 it launches the narrow kernels (counted as one call) or
+    raises: the backward kernel (dpix, and one row of fp32 partial sums per
+    persistent CTA, :func:`narrow_grid`) and its reduction, which sums the
+    rows in a fixed order into one fp32 buffer of the parameter gradients
+    in their torch layouts.
     """
     if pix.device.type == "cpu":
         return fused_decoder_tail_bwd_reference(
@@ -656,44 +703,29 @@ def fused_decoder_tail_bwd_generic(pix, conv1_w, conv1_b, ln_w, ln_b,
                                          conv2_w, grad_out, approximate)
     _check_grad_out(pix, grad_out)
     b, h, w, c = pix.shape
-    cp = generic_channels(c, pix.dtype)
+    params = _narrow_params(pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w)
+    pix = pix.contiguous()
     go = grad_out.to(pix.dtype).contiguous()
-    if pix.dtype == torch.bfloat16:
-        # bf16: the packed buffer at cd = 8 holds the scalar kernels'
-        # layouts
-        w1, w1t, b1, lns, lnb, w2, _ = _packed_views(_pack(
-            pix, conv1_w, conv1_b, ln_w, ln_b, conv2_w, None, cp), cp)
-    else:
-        w1, b1, lns, lnb, w2 = _packed_params(pix, conv1_w, conv1_b, ln_w,
-                                              ln_b, conv2_w, cp)
-        w1t = w1.transpose(2, 3).contiguous()  # (tap, o, c): dpix's taps
-    pix = (pix if cp == c else _pad_channels(pix, cp, (3,))).contiguous()
-    du = torch.empty_like(pix)
+    th, grid = _narrow_launch_grid(pix, "bwd", approximate)
     dpix = torch.empty_like(pix)
-    tiles = _generic_tiles_fn()(b, h, w)  # one partial row per CTA
-    dw1_part = torch.empty((tiles, 9 * cp * cp), dtype=torch.float32,
-                           device=pix.device)
-    small_part = torch.empty((tiles, 6 * cp + 3), dtype=torch.float32,
-                             device=pix.device)
+    # the gradients (dW1, db1, dLN scale, dLN bias, dW2, db2 in their torch
+    # layouts), then the per-CTA partial rows: one fp32 buffer
+    sizes = (9 * c * c, c, c, c, 3 * c, 3)
+    buf = torch.empty(sum(sizes) + grid * NARROW_PARTIALS,
+                      dtype=torch.float32, device=pix.device)
     stream = torch.cuda.current_stream(pix.device).cuda_stream
     rc = _generic_fn("bwd", pix.dtype)(
-        pix.data_ptr(), go.data_ptr(), w1.data_ptr(), w1t.data_ptr(),
-        b1.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w2.data_ptr(),
-        du.data_ptr(), dpix.data_ptr(), dw1_part.data_ptr(),
-        small_part.data_ptr(), b, h, w, cp, c, int(bool(approximate)),
-        stream)
+        pix.data_ptr(), go.data_ptr(), *(v.data_ptr() for v in params),
+        dpix.data_ptr(), buf.data_ptr() + 4 * sum(sizes), buf.data_ptr(),
+        b, h, w, c, th, grid, int(bool(approximate)), stream)
     _raise_if(rc, "decoder_tail_generic")
     fused_decoder_tail_bwd_generic.launches += 1
-    dw1 = dw1_part.sum(0).reshape(3, 3, cp, cp)[:, :, :c, :c].permute(
-        3, 2, 0, 1)
-    small = small_part.sum(0)
-    dw2 = small[3 * cp:6 * cp].reshape(cp, 3)[:c]
-    return ((dpix if cp == c else dpix[..., :c].contiguous()),
-            dw1.to(conv1_w.dtype), small[:c].to(conv1_b.dtype),
-            small[cp:cp + c].to(ln_w.dtype),
-            small[2 * cp:2 * cp + c].to(ln_b.dtype),
-            dw2.t().reshape(conv2_w.shape).to(conv2_w.dtype),
-            small[6 * cp:].to(conv2_w.dtype))
+    dw1, db1, dlns, dlnb, dw2, db2, _ = buf.split(
+        sizes + (grid * NARROW_PARTIALS,))
+    return (dpix, dw1.view(conv1_w.shape).to(conv1_w.dtype),
+            db1.to(conv1_b.dtype), dlns.to(ln_w.dtype), dlnb.to(ln_b.dtype),
+            dw2.view(conv2_w.shape).to(conv2_w.dtype),
+            db2.to(conv2_w.dtype))
 
 
 fused_decoder_tail_bwd_generic.launches = 0

@@ -35,8 +35,11 @@ and K4g in bf16 (tanh) at ``GENERIC_SHAPES``: DIR's tensor-core sources
 K2g at ``ATTENTION_SHAPES`` in both types: DIR's
 ``flash_relpos_generic.cu`` under DIR's own wrappers
 (``kernels/flash_relpos.py`` loaded from DIR, so that builds with other
-entry-point arguments compare), and K5g at ``K5G_SHAPES`` in both types:
-DIR's ``int8_mlp_generic.cu`` under DIR's own ``int8_mlp_generic``
+entry-point arguments compare), K3g / K4g at C <= 8 at ``NARROW_SHAPES``
+in both types: DIR's ``decoder_tail_generic.cu`` under DIR's own wrappers
+(``kernels/decoder_head.py`` loaded from DIR), and K5g at ``K5G_SHAPES``
+in both types: DIR's ``int8_mlp_generic.cu`` under DIR's own
+``int8_mlp_generic``
 (``kernels/int8_mlp.py`` loaded from DIR).
 
     python -m painter_tpu_torch.utils.kernel_variants [--iters 50]
@@ -140,6 +143,10 @@ ATTENTION_SHAPES = ((4, 16, (8, 4), (torch.bfloat16, torch.float32)),
                     (16, 64, (80, 40), (torch.bfloat16,)),
                     (16, 64, (90, 45), (torch.bfloat16,)))
 ATTENTION_KERNELS = ("fwd_kernel", "dq_kernel", "dkv_kernel")
+# the narrow route's --against shapes ((B, H, W), C): tiny_test's decoder
+# at its b2 training shape and an 8-channel decoder at Painter ViT-L's
+# 896x448 b2
+NARROW_SHAPES = (((2, 64, 32), 8), ((2, 896, 448), 8))
 # K5g's --against shapes (M, K, N): tiny_test's MLP, b1-sized M 1 and 16
 # (the JAX kernel test's K 128 / N 256) and a ViT-B-wide SegGPT's b8
 # trunk, where a call is launch-bound and where it is not
@@ -288,6 +295,7 @@ def run(iters: int, against: str = "") -> List[dict]:
                                      {} if name == "kernel" else use,
                                      fn, ref, iters))
     if against:
+        rows += narrow_against(against, iters)
         rows += generic_against(against, max(2, iters // 10))
         rows += attention_against(against, max(2, iters // 10))
         rows += k5g_against(against, iters)
@@ -323,6 +331,47 @@ def generic_against(against: str, iters: int) -> List[dict]:
                     iters, dh.TC_KERNEL_NAMES + ("reduce_kernel",)))
         del pix, params, go
         torch.cuda.empty_cache()
+    return rows
+
+
+def narrow_against(against: str, iters: int) -> List[dict]:
+    """K3g and K4g at C <= 8 (``generic_tail_route``'s "narrow") at
+    ``NARROW_SHAPES`` in bf16 and fp32 (tanh) built from the checkout at
+    ``against`` (its ``decoder_tail_generic.cu``, launched by its own
+    ``kernels/decoder_head.py`` wrappers) in turns with this checkout's
+    (other, this, this, other), each held to the plain versions;
+    ``device_ms`` counts every kernel a call launches (the packing launch,
+    the wrapper's sums and pads included)."""
+    root = os.path.join(against, "painter_tpu_torch", "kernels")
+    built = build_variants({"against_narrow": ("decoder_tail_generic", {})},
+                           os.path.join(root, "csrc"))
+    use = {"decoder_tail_generic": built["against_narrow"]}
+    other = _load_module(os.path.join(root, "decoder_head.py"),
+                         "against_decoder_head")
+    rows = []
+    for shape, c in NARROW_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            pix, params, go = tail_inputs(shape, 640, c)
+            pix, go = pix.to(dtype), go.to(dtype)
+            kind = f"{str(dtype)[6:]} {shape} C={c} tanh"
+            calls = iters if shape[1] * shape[2] > 1e5 else 4 * iters
+            for what, fns, args, ref in (
+                    (f"K3g {kind}", (other.fused_decoder_tail_generic,
+                                     dh.fused_decoder_tail_generic),
+                     (pix, *params, True),
+                     dh.fused_decoder_tail_reference(pix, *params, True)),
+                    (f"K4g {kind}", (other.fused_decoder_tail_bwd_generic,
+                                     dh.fused_decoder_tail_bwd_generic),
+                     (pix, *params[:5], go, True),
+                     dh.fused_decoder_tail_bwd_reference(pix, *params[:5],
+                                                         go, True))):
+                for name in ("against", "kernel", "kernel", "against"):
+                    rows.append(_measure(
+                        what, name, use if name == "against" else {},
+                        functools.partial(fns[name == "kernel"], *args),
+                        ref, calls, ("",)))
+            del pix, params, go
+            torch.cuda.empty_cache()
     return rows
 
 

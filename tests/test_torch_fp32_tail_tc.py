@@ -412,7 +412,7 @@ def test_fp32_route_limits_match_the_sources():
         assert dh.generic_tail_route(c, torch.float32) == "tc"
         assert dh.generic_channels(c, torch.float32) == -(-c // 8) * 8
     for c in (1, 8):
-        assert dh.generic_tail_route(c, torch.float32) == "scalar"
+        assert dh.generic_tail_route(c, torch.float32) == "narrow"
 
 
 def test_scalar_fp32_c64_code_is_gone():

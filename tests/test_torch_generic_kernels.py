@@ -17,7 +17,6 @@ import jax
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from painter_tpu import configs as jcfg
 from painter_tpu.kernels import flash_relpos as jfr
@@ -28,6 +27,8 @@ from painter_tpu_torch.kernels import flash_relpos as fr
 from painter_tpu_torch.models import convert
 from painter_tpu_torch.models import incontext_vit as tm
 
+from test_torch_generic_tail_tc import _tc_tail
+from test_torch_narrow_tail import _narrow_tail
 from torch_port_common import jax_params_np, port_model, stitched_batch, t
 
 DTYPES = (torch.bfloat16, torch.float32)
@@ -48,9 +49,6 @@ PRED_ATOL = 1e-4
 # JAX it is held to 1e-3, and every gradient of that model is also held to
 # the port's own float64 run at GRAD_RTOL
 JAX_FP32_SUM_RTOL = {"grid80x40": {"decoder_pred.3.bias": 1e-3}}
-# K3g / K4g's output tile per CTA, (rows, columns): TH x TW of
-# csrc/decoder_tail_generic.cu
-GENERIC_TILE = (8, 16)
 # tiny_test, its windowed variant (2x2 windows: key grids of width 2),
 # and a 4-block head_dim-64 model on the 80x40 grid (embed 128, 2 heads:
 # narrow, so the CPU holds its (2, 3200, 3200) logits; four blocks, the
@@ -247,83 +245,40 @@ def _tail_inputs(seed, b, h, w, c):
 
 
 def test_generic_tail_weight_layout():
-    """K3g / K4g's weights: the ViT-L kernels' packing -- W1 as (tap, c,
-    o), b1 / LN / W2 -- zero-padded to the built width."""
+    """The C = 64 kernels' packing at any width: W1 as (tap, c, o), b1 /
+    LN / W2 in the input type, nothing padded (the narrow route stages
+    the torch layouts itself, the tensor-core route packs its own)."""
     pix, w1, b1, lns, lnb, w2, _, _ = _tail_inputs(0, 1, 4, 4, 5)
     packed, pb1, plns, plnb, pw2 = dh._packed_params(pix, w1, b1, lns, lnb,
-                                                     w2, 8)
-    assert packed.shape == (3, 3, 8, 8)
-    assert torch.equal(packed[:, :, :5, :5], w1.permute(2, 3, 1, 0))
-    assert torch.count_nonzero(packed[:, :, 5:]) == 0
-    assert torch.count_nonzero(packed[:, :, :, 5:]) == 0
+                                                     w2)
+    assert packed.shape == (3, 3, 5, 5)
+    assert torch.equal(packed, w1.permute(2, 3, 1, 0))
     for got, ref in ((pb1, b1), (plns, lns), (plnb, lnb)):
-        assert torch.equal(got[:5], ref) and torch.count_nonzero(got[5:]) == 0
-    assert torch.equal(pw2[:5], w2.reshape(3, 5).t())
-    assert torch.count_nonzero(pw2[5:]) == 0
-    vitl = dh._packed_params(pix, w1, b1, lns, lnb, w2)
-    assert torch.equal(vitl[0], packed[:, :, :5, :5])
+        assert torch.equal(got, ref)
+    assert torch.equal(pw2, w2.reshape(3, 5).t())
+    with pytest.raises(ValueError, match="do not fit C=5"):
+        dh._packed_params(pix, w1[:4], b1, lns, lnb, w2)
 
 
 def _k3g_k4g(pix, w1, b1, lns, lnb, w2, b2, go, approx):
-    """K3g / K4g's arithmetic on padded channels, in torch: the width
-    padded to the built instance, LayerNorm over the real C, the padded
-    channels of du held at zero, the parameter gradients as per-tile
-    partial sums (8 x 16 output tiles, pixels past the image holding
-    zeros) summed at the end."""
-    b, h, w, c = pix.shape
-    cp = dh.generic_channels(c)
-    pw1, pb1, plns, plnb, pw2 = dh._packed_params(pix, w1, b1, lns, lnb,
-                                                  w2, cp)
-    xp = dh._pad_channels(pix, cp, (3,))
-    conv_w = pw1.permute(3, 2, 0, 1)  # (o, c, 3, 3)
-    u = F.conv2d(xp.permute(0, 3, 1, 2), conv_w, padding=1).permute(
-        0, 2, 3, 1) + pb1
-    real = torch.arange(cp) < c
-    ur = u[..., :c]
-    mean = ur.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((ur - mean) ** 2).mean(-1, keepdim=True) + dh.LN_EPS)
-    xhat = (u - mean) * rstd
-    n = xhat * plns + plnb
-    g = dh._gelu(n, approx) * real
-    out = g @ pw2 + b2
-    dn = (go @ pw2.t()) * dh.gelu_grad(n, approx) * real
-    dxhat = dn * plns
-    mx = dxhat.sum(-1, keepdim=True) / c
-    mxx = (dxhat * xhat).sum(-1, keepdim=True) / c
-    du = rstd * (dxhat - mx - xhat * mxx) * real
-    dpix = torch.nn.grad.conv2d_input(xp.permute(0, 3, 1, 2).shape, conv_w,
-                                      du.permute(0, 3, 1, 2), padding=1)
-    th, tw = GENERIC_TILE
-    hp, wp = -(-h // th) * th, -(-w // tw) * tw
-
-    def tiles(x):  # (b, h, w, ...) -> (tiles, th * tw, ...) zero-padded
-        x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
-        x = x.reshape(b, hp // th, th, wp // tw, tw, -1)
-        return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, th * tw, x.shape[-1])
-
-    parts = [tiles(v).sum(1) for v in (du, dn * xhat, dn)]
-    dw2 = torch.einsum("tpc,tpk->tck", tiles(g), tiles(go)).reshape(-1,
-                                                                    3 * cp)
-    small = torch.cat([*parts, dw2, tiles(go).sum(1)], 1).sum(0)
-    xpad = F.pad(xp, (0, 0, 1, 1, 1, 1))
-    dw1 = torch.stack([
-        torch.einsum("tpc,tpo->tco", tiles(xpad[:, dy:dy + h, dx:dx + w]),
-                     tiles(du)).sum(0)
-        for dy in range(3) for dx in range(3)])  # (tap, c, o)
-    return (out, dpix.permute(0, 2, 3, 1)[..., :c],
-            dw1.reshape(3, 3, cp, cp)[:, :, :c, :c].permute(3, 2, 0, 1),
-            small[:c], small[cp:cp + c], small[2 * cp:2 * cp + c],
-            small[3 * cp:6 * cp].reshape(cp, 3)[:c].t().reshape(3, c, 1, 1),
-            small[6 * cp:])
+    """K3g / K4g's arithmetic on the route ``generic_tail_route`` names:
+    the narrow kernels' restatement at C <= 8 (tests/
+    test_torch_narrow_tail.py: taps packed into K, quad sums, per-tile
+    partials in the kernels' order), the tensor-core route's at C >= 9
+    (tests/test_torch_generic_tail_tc.py, whole rows, one pixel slice)."""
+    if dh.generic_tail_route(pix.shape[-1], pix.dtype) == "narrow":
+        return _narrow_tail(pix, w1, b1, lns, lnb, w2, b2, go, approx)
+    return _tc_tail(pix, w1, b1, lns, lnb, w2, b2, go, approx, False, 1)
 
 
 @pytest.mark.parametrize("shape,c", [((2, 16, 12), 8), ((2, 12, 8), 8),
                                      ((1, 11, 21), 5), ((1, 9, 17), 40)])
 @pytest.mark.parametrize("approx", [False, True])
 def test_generic_tail_padded_arithmetic_matches_plain(shape, c, approx):
-    """K3g / K4g's padded arithmetic (the JAX tests' C = 8 at 16x12 and
-    12x8, and ragged shapes at widths that pad) == the plain forward and
-    backward in fp32 within 1e-5 x each output's max abs."""
+    """K3g / K4g's arithmetic on their route (the JAX tests' C = 8 at 16x12
+    and 12x8, C 5 padded to 8 on a ragged grid: narrow; C 40: tensor
+    cores) == the plain forward and backward in fp32 within 1e-5 x each
+    output's max abs."""
     b, h, w = shape
     pix, w1, b1, lns, lnb, w2, b2, go = _tail_inputs(c + h, b, h, w, c)
     got = _k3g_k4g(pix, w1, b1, lns, lnb, w2, b2, go, approx)

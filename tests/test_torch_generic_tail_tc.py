@@ -16,7 +16,7 @@ small gradients as per-unit partials. It is held against the JAX
 ``fused_decoder_tail`` (Pallas in interpret mode) and against the plain
 versions. The route table (``decoder_route``, ``generic_tail_route``,
 ``generic_channels``) is pinned by shape and type, and the packed layout
-against the scalar kernels' layouts. The kernels themselves run only on
+against the C = 64 kernels' layouts. The kernels themselves run only on
 the card (``chip_smoke.py`` ``phase_generic_tail``). Inputs are numpy
 from a seed; tolerances with their reasons at each test.
 """
@@ -152,15 +152,16 @@ def _tc_tail(pix, w1, b1, lns, lnb, w2, b2, go, approx, split, slices):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("c,bf16_route,bf16_cp,f32_cp", [
-    (1, "scalar", 8, 8), (8, "scalar", 8, 8), (9, "tc", 16, 16),
+    (1, "narrow", 8, 8), (8, "narrow", 8, 8), (9, "tc", 16, 16),
     (13, "tc", 16, 16), (16, "tc", 16, 16), (40, "tc", 40, 40), (100, "tc", 104, 104),
     (128, "tc", 128, 128), (160, "tc", 160, 160), (256, "tc", 256, 256),
     (264, "tc", 264, 264), (512, "tc", 512, 512), (513, "tc", 520, 520),
     (1000, "tc", 1000, 1000)])
 def test_tc_route_table(c, bf16_route, bf16_cp, f32_cp):
     """C >= 9 goes to the tensor-core kernels in bf16 and fp32 (3xTF32),
-    padded to a multiple of 8; C <= 8 stays on the scalar kernels and their
-    padding in both types. Every width is decoder_route's "generic"."""
+    padded to a multiple of 8; C <= 8 to the narrow kernels, padded to 8 in
+    shared memory, in both types. Every width is decoder_route's
+    "generic"."""
     for dtype in (torch.bfloat16, torch.float32):
         assert dh.decoder_route(c, dtype) == "generic"
     assert dh.generic_tail_route(c, torch.bfloat16) == bf16_route
@@ -196,15 +197,20 @@ def test_tc_warpgroup_widths(c, split, nw):
 def test_pack_reference_holds_the_scalar_layouts(c):
     """The packed buffer: W1 (tap, o, c), W1 (tap, c, o), b1, LN scale,
     LN bias, W2 (c, k), b2, each rounded to bf16 and zero-padded to the
-    multiple of 8; at cd = 8 its views are the scalar kernels' own inputs
-    (``_packed_params`` at cp = 8), which the bf16 C <= 8 route reads."""
+    multiple of 8: at their offsets (csrc/decoder_tail_tc.cuh) the C = 64
+    kernels' layouts (``_packed_params``) of the padded parameters."""
     args = _port_args(_inputs(c, 1, 4, 4, c), torch.bfloat16)
     pix, w1, b1, lns, lnb, w2, b2 = args
     cd = dh.generic_channels(c, torch.bfloat16)
     packed = dh.pack_reference(w1, b1, lns, lnb, w2, b2, cd)
     assert packed.dtype == torch.bfloat16
     assert packed.numel() == dh._packed_size(cd)
-    views = dh._packed_views(packed, cd)
+    p2, rows = 9 * cd * cd, 18 * cd * cd
+    views = (packed[p2:2 * p2], packed[:p2], packed[rows:rows + cd],
+             packed[rows + cd:rows + 2 * cd],
+             packed[rows + 2 * cd:rows + 3 * cd],
+             packed[rows + 3 * cd:rows + 6 * cd],
+             packed[rows + 6 * cd:rows + 6 * cd + 3])
     pad = dh._pad_channels(pix, cd, (3,))
     ref = dh._packed_params(pad, dh._pad_channels(w1, cd, (0, 1)),
                             dh._pad_channels(b1, cd, (0,)),

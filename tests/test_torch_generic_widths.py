@@ -369,8 +369,8 @@ def test_k5g_source_notes_its_tpu_kernel():
     assert 'extern "C"' in src and "int8_mlp_generic_f32" in src
     with open(f"{build.CSRC}/decoder_tail_generic.cu") as f:
         src = f.read()
-    # the scalar tail keeps C <= 8; the chunked route past 128 channels
-    # went when fp32 moved to the tensor cores
-    assert "decoder_tail_generic_bwd_f32" in src
+    # the narrow tail takes C <= 8 on mma.sync; the chunked route past 128
+    # channels went when fp32 moved to the tensor cores
+    assert "decoder_tail_generic_bwd_f32" in src and "mma.sync" in src
     assert "decoder_tail_generic_wide" not in src
     assert build._target("int8_mlp_generic").startswith(build.BUILD_DIR)
